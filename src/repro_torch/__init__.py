@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of the GriNNder SSO system (storage-offloaded
+full-graph GNN execution) for an NVIDIA Hopper card.
+
+The package mirrors ``src/repro/`` module by module and imports neither JAX
+nor anything of the JAX package: the numpy-only substrate (observability,
+counters, storage, cache, graph tooling, pipeline queues) is carried as its
+own copy. Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; with no device given and no CUDA device present they raise
+(:func:`repro_torch.device.resolve_device`).
+
+Ported so far: the serving slice — ``OffloadedInference`` +
+``EmbeddingServer`` over the shared ``ForwardRunner`` pipeline, GCN layers,
+and the two hand-written CUDA kernels on that path (``gather_rows``,
+``gather_aggregate`` in ``kernels/gather_scatter/csrc/``).
+"""
