@@ -9,7 +9,9 @@ own copy. Entry points run on the CUDA device unless the caller passes
 (:func:`repro_torch.device.resolve_device`).
 
 Ported so far: the serving slice — ``OffloadedInference`` +
-``EmbeddingServer`` over the shared ``ForwardRunner`` pipeline, GCN layers,
-and the two hand-written CUDA kernels on that path (``gather_rows``,
-``gather_aggregate`` in ``kernels/gather_scatter/csrc/``).
+``EmbeddingServer`` over the shared ``ForwardRunner`` pipeline — and the
+training slice — ``SSOEngine`` (regather and snapshot), AdamW, atomic
+checkpoints and the epoch-checkpointed loop — with GCN layers and the three
+hand-written CUDA kernels on those paths (``gather_rows``,
+``gather_aggregate``, ``scatter_add`` in ``kernels/gather_scatter/csrc/``).
 """

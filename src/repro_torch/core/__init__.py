@@ -1,7 +1,28 @@
 """GriNNder core for the port: structured storage offloading
-(cache/(re)gather/bypass) and the partition plan.
+(cache/(re)gather/bypass), the partition plan, the SSO training engine and
+the storage fault-injection tier.
 
-Unlike the reference package this ``__init__`` imports no engine: the
-submodules are imported where they are used, so importing the storage or
-cache substrate stays cheap and free of any compute framework.
+Unlike the reference package this ``__init__`` imports no engine eagerly:
+the names below load their submodule on first access. The engine imports
+the runtime, whose executor imports ``core.cache``, so an eager import here
+would be a cycle; importing the storage or cache substrate also stays cheap
+and free of any compute framework.
 """
+import importlib
+
+_EXPORTS = {
+    "Counters": "counters", "PhaseTimer": "counters",
+    "HostCache": "cache", "StorageTier": "storage",
+    "PartitionPlan": "plan", "WorkUnit": "plan", "build_plan": "plan",
+    "SSOEngine": "engine",
+    "FaultPolicy": "faults", "FaultyTier": "faults",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{mod}"), name)

@@ -7,6 +7,8 @@ tensors, plus numpy oracles). ``_build.py`` compiles the sources with
 ``nvcc`` at first use; ``dispatch.py`` routes the engine's hot loops to the
 kernels or to the reference path by mode and device.
 
-- gather_scatter: ``gather_rows`` (forward regather of the staged partition
-  stack) and ``gather_aggregate`` (one-kernel GCN gather+aggregate).
+- gather_scatter: ``gather_rows`` (forward and backward regather of the
+  staged partition stack), ``gather_aggregate`` (one-kernel GCN
+  gather+aggregate) and ``scatter_add_`` (the backward's sorted grad
+  write-back).
 """

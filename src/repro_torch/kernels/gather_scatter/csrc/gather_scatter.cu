@@ -1,5 +1,6 @@
-// Row gather and fused gather+aggregate for the SSO forward hot path, hand
-// written for Hopper (sm_90a). Plain C entry points, loaded with ctypes by
+// Row gather and fused gather+aggregate for the SSO forward hot path, and the
+// sorted scatter-add of the backward's grad write-back, hand written for
+// Hopper (sm_90a). Plain C entry points, loaded with ctypes by
 // repro_torch/kernels/gather_scatter/ops.py; each launches on the caller's
 // stream, allocates nothing and returns cudaGetLastError().
 //
@@ -38,6 +39,27 @@
 //   highest in-degree row serialises one SM while the rest of the grid
 //   drains. Splitting hub rows (a second pass over partial sums in a fixed
 //   order) is the first thing a performance pass should look at.
+//
+// scatter_add_f32 replaces scatter_add_pallas
+// (src/repro/kernels/gather_scatter/gather_scatter.py:141):
+//   base[rows[i], :] += values[i, :] in place, rows sorted ascending (they
+//   may repeat): the backward's grad write-back into a partition's buffer.
+//   Duplicate rows add in input order, one plain round-to-nearest add each
+//   (__fadd_rn, never contracted into an FMA), starting from base's value,
+//   so the result equals a sequential np.add.at bitwise. Rows that are not
+//   touched keep base's bits: the TPU kernel aliased base into its output,
+//   here the kernel writes into base itself and never reads the rest.
+//   Bound: memory. It reads the values (R*D*4 bytes) and the R row ids
+//   (4*R), and reads and writes each of the U touched rows once (2*U*D*4).
+//   Design: no atomics, and no block depends on another. Each run of equal
+//   row ids (a segment) is owned by exactly one thread per column: the
+//   thread whose value row starts the segment (i == 0 or rows[i] !=
+//   rows[i-1]) walks to the end of the segment, adding into a register that
+//   starts at base[row]; the other threads exit. The 2-D block is
+//   gather_rows': threadIdx.x over the columns (float4 when D % 4 == 0 and
+//   both pointers are 16 B aligned, one float otherwise), threadIdx.y over
+//   value rows. The TPU wrapper's 128-lane column padding has no
+//   counterpart: any D is taken.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -161,6 +183,56 @@ __global__ void gather_aggregate_scalar_kernel(const float* __restrict__ table,
   out[r * D + c] = acc;
 }
 
+// the first value row of a segment, or -1 (thread exits): rows[r] differs
+// from its predecessor or r == 0
+__device__ __forceinline__ int segment_row(const int* __restrict__ rows,
+                                           long long r) {
+  const int row = rows[r];
+  return (r == 0 || rows[r - 1] != row) ? row : -1;
+}
+
+__global__ void scatter_add_vec4_kernel(float4* __restrict__ base,
+                                        const int* __restrict__ rows,
+                                        const float4* __restrict__ values,
+                                        long long R, long long D4) {
+  const long long r = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+  if (r >= R) return;
+  const int row = segment_row(rows, r);
+  if (row < 0) return;
+  long long end = r + 1;
+  while (end < R && rows[end] == row) ++end;
+  float4* dst = base + (long long)row * D4;
+  for (long long c = threadIdx.x; c < D4; c += blockDim.x) {
+    float4 acc = dst[c];
+    for (long long j = r; j < end; ++j) {
+      const float4 v = values[j * D4 + c];
+      acc.x = __fadd_rn(acc.x, v.x);
+      acc.y = __fadd_rn(acc.y, v.y);
+      acc.z = __fadd_rn(acc.z, v.z);
+      acc.w = __fadd_rn(acc.w, v.w);
+    }
+    dst[c] = acc;
+  }
+}
+
+__global__ void scatter_add_scalar_kernel(float* __restrict__ base,
+                                          const int* __restrict__ rows,
+                                          const float* __restrict__ values,
+                                          long long R, long long D) {
+  const long long r = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+  if (r >= R) return;
+  const int row = segment_row(rows, r);
+  if (row < 0) return;
+  long long end = r + 1;
+  while (end < R && rows[end] == row) ++end;
+  float* dst = base + (long long)row * D;
+  for (long long c = threadIdx.x; c < D; c += blockDim.x) {
+    float acc = dst[c];
+    for (long long j = r; j < end; ++j) acc = __fadd_rn(acc, values[j * D + c]);
+    dst[c] = acc;
+  }
+}
+
 // threads along the columns: a warp multiple covering `cols`, at most kThreads
 int col_threads(long long cols) {
   long long t = ((cols + 31) / 32) * 32;
@@ -209,6 +281,27 @@ extern "C" int gather_aggregate_f32(const float* table, const int* erows,
   } else {
     gather_aggregate_scalar_kernel<<<grid, tx, 0, stream>>>(
         table, erows, dst, w, out, E, cols);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int scatter_add_f32(float* base, const int* rows,
+                               const float* values, long long R, long long D,
+                               cudaStream_t stream) {
+  if (R <= 0 || D <= 0) return (int)cudaGetLastError();
+  const bool vec = (D % 4 == 0) && aligned16(base, values);
+  const long long cols = vec ? D / 4 : D;
+  const int tx = col_threads(cols);
+  const int ty = kThreads / tx;
+  const dim3 block(tx, ty);
+  const long long grid = (R + ty - 1) / ty;
+  if (vec) {
+    scatter_add_vec4_kernel<<<(unsigned)grid, block, 0, stream>>>(
+        reinterpret_cast<float4*>(base), rows,
+        reinterpret_cast<const float4*>(values), R, cols);
+  } else {
+    scatter_add_scalar_kernel<<<(unsigned)grid, block, 0, stream>>>(
+        base, rows, values, R, cols);
   }
   return (int)cudaGetLastError();
 }

@@ -1,14 +1,16 @@
-"""Wrappers over the CUDA gather kernels (``csrc/gather_scatter.cu``).
+"""Wrappers over the CUDA gather/scatter kernels (``csrc/gather_scatter.cu``).
 
 On a CUDA tensor a wrapper checks its inputs, allocates the output with
-``torch.empty``, launches the kernel on the calling thread's current stream
-and adds one to its entry in :data:`LAUNCHES`; a refused launch raises. On a
-CPU tensor it runs the plain version in ``ref.py`` — the only reason it ever
-does. There is no fallback from a CUDA tensor to the plain version.
+``torch.empty`` (``scatter_add_`` writes into its ``base`` instead),
+launches the kernel on the calling thread's current stream and adds one to
+its entry in :data:`LAUNCHES`; a refused launch raises. On a CPU tensor it
+runs the plain version in ``ref.py`` — the only reason it ever does. There
+is no fallback from a CUDA tensor to the plain version.
 
 The reference wrappers padded the feature axis to a 128-lane block (a TPU
 layout constraint); these take any ``D``. The degenerate early returns are
-kept: an empty gather / aggregate returns zeros without a launch.
+kept: an empty gather / aggregate returns zeros and an empty scatter leaves
+``base`` as it is, without a launch.
 """
 from __future__ import annotations
 
@@ -22,7 +24,9 @@ from repro_torch.kernels.gather_scatter import ref
 
 # launches per kernel since the last reset_launches(); bumped only where a
 # kernel is launched (never by the plain versions)
-LAUNCHES: Dict[str, int] = {"gather_rows": 0, "gather_aggregate": 0}
+LAUNCHES: Dict[str, int] = {
+    "gather_rows": 0, "gather_aggregate": 0, "scatter_add": 0,
+}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -45,6 +49,8 @@ def _lib():
             _P, _P, _P, _P, _P, _I64, _I64, _I64, _P,
         ]
         lib.gather_aggregate_f32.restype = ctypes.c_int
+        lib.scatter_add_f32.argtypes = [_P, _P, _P, _I64, _I64, _P]
+        lib.scatter_add_f32.restype = ctypes.c_int
         _bound = lib
     return _bound
 
@@ -130,3 +136,41 @@ def gather_aggregate(
     _raise_on(err, "gather_aggregate")
     LAUNCHES["gather_aggregate"] += 1
     return out
+
+
+def scatter_add_(base: torch.Tensor, rows: torch.Tensor,
+                 values: torch.Tensor) -> torch.Tensor:
+    """``base[rows[i]] += values[i]`` in place; returns ``base``.
+
+    ``base`` ``(N, D)`` float32, ``rows`` ``(R,)`` int32 sorted ascending
+    with values in ``[0, N)`` (duplicates add in input order, one rounding
+    each: bitwise ``np.add.at``), ``values`` ``(R, D)`` float32. Rows not in
+    ``rows`` keep their bits. Unsorted rows would give two threads one
+    output row; the dispatcher stable-sorts before calling."""
+    if base.dim() != 2 or rows.dim() != 1 or values.dim() != 2:
+        raise ValueError(
+            f"scatter_add_ wants base (N, D), rows (R,) and values (R, D); "
+            f"got {tuple(base.shape)}, {tuple(rows.shape)} and "
+            f"{tuple(values.shape)}"
+        )
+    R, D = rows.shape[0], base.shape[1]
+    if tuple(values.shape) != (R, D):
+        raise ValueError(
+            f"values {tuple(values.shape)} do not match rows ({R},) and "
+            f"base width {D}"
+        )
+    if R == 0 or D == 0:
+        return base
+    if not base.is_cuda:
+        return ref.scatter_add_ref(base, rows, values)
+    dev = base.device
+    _check("base", base, torch.float32, 2, dev)
+    _check("rows", rows, torch.int32, 1, dev)
+    _check("values", values, torch.float32, 2, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().scatter_add_f32(
+        base.data_ptr(), rows.data_ptr(), values.data_ptr(), R, D, stream,
+    )
+    _raise_on(err, "scatter_add")
+    LAUNCHES["scatter_add"] += 1
+    return base

@@ -1,15 +1,20 @@
-"""GNN layers for the port: the partition-wise forward shared by the
-offloaded inference engine and the full-graph oracle.
+"""GNN layers for the port: the partition-wise forward and its vjp, shared
+by the SSO training engine, the offloaded inference engine and the
+full-graph oracle.
 
 Every layer is an ``nn.Module`` holding its weights, plus a functional
 ``apply(layer, ga, topo, activate) -> (n_dst, d_out)`` where ``ga`` holds the
 gathered source activations of the work unit (the paper's ``GA_p^{l-1}``)
 and ``topo`` is the partition-local (or full-graph) edge structure.
+:func:`apply_vjp` differentiates one layer at ``ga`` (the engine's
+per-(layer, unit) backward).
 
-Message passing is an edge gather followed by :func:`seg_sum`, a segment sum
-over ``dst`` that gives the same bits on every run on either device (see its
-docstring) — the property the pipelined == serial and kernel == reference
-checks rest on. Only GCN is ported in this slice.
+Message passing is an edge gather (:func:`edge_gather`) followed by
+:func:`seg_sum`, a segment sum over ``dst`` that gives the same bits on
+every run on either device (see its docstring); the gather's backward is
+the same segment sum over ``src``. Forward and backward are therefore
+deterministic — the property the pipelined == serial and kernel ==
+reference checks rest on. Only GCN is ported so far.
 """
 from __future__ import annotations
 
@@ -60,18 +65,57 @@ def seg_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
     """``out[seg[i]] += x[i]`` over zeros — the counterpart of the
     reference's ``jax.ops.segment_sum``.
 
-    Deterministic by construction on both devices, in edge order:
-    ``index_add_`` on a CUDA tensor uses float atomics (order varies from
-    run to run), so the CUDA path uses ``index_put_(accumulate=True)``,
-    which stable-sorts the indices and accumulates each segment
-    sequentially. On the CPU, ``index_add_`` is the sequential loop (while
-    the CPU ``index_put_`` accumulate is the parallel one)."""
+    Deterministic by construction on both devices: ``index_add_`` on a
+    CUDA tensor uses float atomics (order varies from run to run), so the
+    CUDA path uses ``index_put_(accumulate=True)``, which stable-sorts the
+    indices and sums each segment without atomics (in edge order at widths
+    of 32 columns and more; below that its order is its own, and it differs
+    from a sequential ``np.add.at`` by an ulp). On the CPU, ``index_add_``
+    is the sequential loop (while the CPU ``index_put_`` accumulate is the
+    parallel one)."""
     out = x.new_zeros((n,) + tuple(x.shape[1:]))
     if x.is_cuda:
         out.index_put_((seg.long(),), x, accumulate=True)
     else:
         out.index_add_(0, seg, x)
     return out
+
+
+class _EdgeGather(torch.autograd.Function):
+    """``ga[src]`` whose backward is :func:`seg_sum` over ``src``. PyTorch's
+    own ``index_select`` backward is ``index_add_``, which uses float
+    atomics on a CUDA tensor (the summed ``dGA`` would change from run to
+    run); on the CPU the two are the same sequential loop."""
+
+    @staticmethod
+    def forward(ctx, ga: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(src)
+        ctx.n_rows = ga.shape[0]
+        return ga.index_select(0, src)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (src,) = ctx.saved_tensors
+        return seg_sum(grad, src, ctx.n_rows), None
+
+
+def edge_gather(ga: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``ga[src]`` (rows of ``ga`` per edge) with a deterministic backward."""
+    return _EdgeGather.apply(ga, src)
+
+
+def apply_vjp(apply: Callable, layer: nn.Module, ga: torch.Tensor,
+              topo: "LocalTopo", d_out: torch.Tensor, activate: bool):
+    """vjp of one layer at ``ga``: ``({param_name: dL/dparam}, dL/dga)``
+    for the cotangent ``d_out`` of ``apply(layer, ga, topo, activate)``.
+    Recomputes the layer's intermediates (the regather engine keeps none)
+    under ``enable_grad`` — the forward runner computes under ``no_grad``."""
+    names, params = zip(*layer.named_parameters())
+    ga = ga.detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = apply(layer, ga, topo, activate=activate)
+        *dp, dga = torch.autograd.grad(out, [*params, ga], d_out)
+    return dict(zip(names, dp)), dga
 
 
 # --------------------------------------------------------------------------
@@ -103,7 +147,7 @@ def gcn_apply(layer: GCNLayer, ga: torch.Tensor, topo: LocalTopo,
     relu — the reference ``gcn_apply``'s order. The scale is applied in
     place on the freshly gathered messages (same single rounding, one
     ``(E, d)`` tensor live instead of two)."""
-    msg = ga.index_select(0, topo.src)
+    msg = edge_gather(ga, topo.src)
     msg.mul_(topo.edge_weight[:, None])
     agg = seg_sum(msg, topo.dst, topo.n_dst)
     del msg
@@ -186,3 +230,20 @@ def full_graph_forward(spec: GNNSpec, params: List, x, topo: LocalTopo):
     for i, layer in enumerate(params):
         h = spec.apply_layer(layer, h, topo, activate=(i < len(params) - 1))
     return h
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 n_total: Optional[int] = None) -> torch.Tensor:
+    """Mean cross-entropy over nodes (sum / ``n_total`` form, so partitions
+    compose exactly)."""
+    n_total = n_total if n_total is not None else logits.shape[0]
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(1, labels.long()[:, None])[:, 0]
+    return -ll.sum() / n_total
+
+
+def full_graph_loss(spec: GNNSpec, params: List, x, topo: LocalTopo, labels):
+    """Dense whole-graph loss — the oracle the engine's gradients are held
+    against (``labels`` a tensor or a numpy array)."""
+    logits = full_graph_forward(spec, params, x, topo)
+    return softmax_xent(logits, torch.as_tensor(labels, device=topo.device))

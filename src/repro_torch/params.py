@@ -1,9 +1,11 @@
-"""Weight converter: reference (JAX) parameter pytrees -> the port's layers.
+"""Weight converters between the reference (JAX) parameter pytrees and the
+port's layers, both ways.
 
-The tests use it to hand both packages the same weights; ``chip_smoke.py``
-never imports JAX and initialises from a seeded ``torch.Generator`` instead.
-Inputs are plain numpy dictionaries (``np.asarray`` of the reference
-params), so this module needs nothing of JAX.
+The tests use them to hand both packages the same weights and to compare
+gradients and trained weights; ``chip_smoke.py`` never imports JAX and
+initialises from a seeded ``torch.Generator`` instead. The reference side is
+plain numpy dictionaries (``np.asarray`` of the reference params), so this
+module needs nothing of JAX.
 """
 from __future__ import annotations
 
@@ -42,3 +44,29 @@ def params_from_jax(params: List[Dict], device: DeviceLike = None) -> nn.ModuleL
             layer.lin.bias.copy_(torch.from_numpy(b))
         layers.append(layer)
     return nn.ModuleList(layers)
+
+
+def _lin_to_jax(weight: torch.Tensor, bias: torch.Tensor) -> Dict:
+    w = weight.detach().cpu().numpy()
+    return {"lin": {"w": np.ascontiguousarray(w.T),
+                    "b": bias.detach().cpu().numpy().copy()}}
+
+
+def params_to_numpy(params) -> List[Dict]:
+    """GCN layers -> ``[{"lin": {"w": (d_in, d_out), "b": (d_out,)}}, ...]``
+    numpy, the reference's layout (the inverse of :func:`params_from_jax`)."""
+    return [_lin_to_jax(layer.lin.weight, layer.lin.bias) for layer in params]
+
+
+def grads_to_jax(grads: List[Dict[str, torch.Tensor]]) -> List[Dict]:
+    """The engine's per-layer ``{"lin.weight", "lin.bias"}`` gradients ->
+    the reference's ``[{"lin": {"w", "b"}}, ...]`` numpy layout."""
+    out = []
+    for i, g in enumerate(grads):
+        if set(g) != {"lin.weight", "lin.bias"}:
+            raise ValueError(
+                f"layer {i}: only GCN grads ('lin.weight', 'lin.bias') are "
+                f"ported; got keys {sorted(g)}"
+            )
+        out.append(_lin_to_jax(g["lin.weight"], g["lin.bias"]))
+    return out

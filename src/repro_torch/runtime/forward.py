@@ -13,12 +13,12 @@ activations — all streamed through :meth:`PipelineExecutor.run_stream` in
 strict schedule order, so a pipelined layer pass stays bit-identical to the
 serial one.
 
-Two drivers share it in the reference package; the port has the serving
-one so far:
+Two drivers share it:
 
-- ``SSOEngine`` (training, next slice): runs every layer through
-  :meth:`run_layer` and hooks ``after_compute`` in snapshot mode to persist
-  ``GA_p^{l-1}``.
+- :class:`~repro_torch.core.engine.SSOEngine` (training): runs every layer
+  through :meth:`run_layer` and hooks ``after_compute`` in snapshot mode to
+  persist ``GA_p^{l-1}``; its backward regathers through :meth:`gather`,
+  :meth:`stacked_gather` and :meth:`prefetch_unit`.
 - ``OffloadedInference`` (serving): forward-only, so it adds the
   inference-only wins on top — per-layer storage truncation (layer ``l-1``'s
   activation file is freed as soon as layer ``l`` finishes) and optional

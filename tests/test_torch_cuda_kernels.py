@@ -84,3 +84,37 @@ def test_cuda_gather_aggregate_rows_without_edges_are_zero(cuda_dev):
     out = ops.gather_aggregate(table, erows, dst, w, 7)
     torch.cuda.synchronize()
     assert torch.count_nonzero(out[[0, 1, 3, 4, 6]]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r,D", [
+    (64, 200, 16), (300, 77, 48), (10, 1, 7), (40, 90, 7), (257, 511, 1024),
+])
+def test_cuda_scatter_add_bitwise_vs_oracle(cuda_dev, n, r, D, rng):
+    base = rng.standard_normal((n, D), dtype=np.float32)
+    rows = np.sort(rng.integers(0, n // 2 + 1, r)).astype(np.int32)
+    values = rng.standard_normal((r, D), dtype=np.float32)
+    before = ops.LAUNCHES["scatter_add"]
+    b = torch.from_numpy(base).to(cuda_dev)
+    out = ops.scatter_add_(b, *_on(cuda_dev, rows, values))
+    torch.cuda.synchronize()
+    assert out is b
+    # duplicates in input order, and the untouched tail keeps base's bits
+    np.testing.assert_array_equal(b.cpu().numpy(),
+                                  ref.scatter_add_ref_np(base, rows, values))
+    assert ops.LAUNCHES["scatter_add"] == before + 1
+    plain = ref.scatter_add_ref(torch.from_numpy(base).to(cuda_dev),
+                                *_on(cuda_dev, rows, values))
+    assert torch.equal(plain, b)
+
+
+@pytest.mark.cuda
+def test_cuda_scatter_add_refuses_bad_inputs(cuda_dev):
+    b = torch.zeros(4, 4, device=cuda_dev)
+    rows = torch.zeros(2, dtype=torch.int32, device=cuda_dev)
+    with pytest.raises(TypeError):
+        ops.scatter_add_(b, rows.long(), torch.zeros(2, 4, device=cuda_dev))
+    with pytest.raises(ValueError, match="expected"):
+        ops.scatter_add_(b, rows.cpu(), torch.zeros(2, 4, device=cuda_dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.scatter_add_(b.t(), rows, torch.zeros(2, 4, device=cuda_dev))

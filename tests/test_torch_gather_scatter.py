@@ -130,7 +130,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing(
     table, erows, dst, w = _agg_inputs(rng, 30, 60, 10, 8)
     ops.gather_rows(*_t(table, erows))
     ops.gather_aggregate(*_t(table, erows, dst, w), 10)
-    assert ops.LAUNCHES == {"gather_rows": 0, "gather_aggregate": 0}
+    assert ops.LAUNCHES == {"gather_rows": 0, "gather_aggregate": 0,
+                            "scatter_add": 0}
 
 
 # ----------------------------------------------------------------- dispatch

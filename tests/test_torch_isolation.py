@@ -39,6 +39,9 @@ def _forbidden(name: str) -> bool:
 def test_fresh_process_import_pulls_no_jax_and_no_reference_package():
     mods = _port_modules()
     assert "repro_torch.launch.infer" in mods and len(mods) > 20
+    assert {"repro_torch.launch.train", "repro_torch.core.engine",
+            "repro_torch.core.faults", "repro_torch.optim.adamw",
+            "repro_torch.train.checkpoint", "repro_torch.train.loop"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -86,10 +89,12 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(
 ):
     from repro_torch.core.cache import HostCache
     from repro_torch.core.counters import Counters
+    from repro_torch.core.engine import SSOEngine
     from repro_torch.core.storage import StorageTier
     from repro_torch.device import resolve_device
     from repro_torch.infer import OffloadedInference
     from repro_torch.launch.infer import _infer_smoke
+    from repro_torch.launch.train import _train_smoke
     from repro_torch.models.gnn.layers import get_gnn
 
     plan = _tiny_plan("cpu")
@@ -107,17 +112,26 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(
         _tiny_plan(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         _infer_smoke("gcn", 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SSOEngine(get_gnn("gcn"), plan, [8, 8, 4], st,
+                  HostCache(1 << 20, st, c), c)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _train_smoke("gcn", 0)
     # the CPU, asked for, is fine
     assert resolve_device("cpu") == torch.device("cpu")
     inf = OffloadedInference(get_gnn("gcn"), plan, [8, 8, 4], st,
                              HostCache(1 << 20, st, c), c, device="cpu")
     inf.close()
+    eng = SSOEngine(get_gnn("gcn"), plan, [8, 8, 4], st,
+                    HostCache(1 << 20, st, c), c, device="cpu")
+    eng.close()
     st.close()
 
 
 def test_engine_refuses_a_plan_on_another_device(tmp_path):
     from repro_torch.core.cache import HostCache
     from repro_torch.core.counters import Counters
+    from repro_torch.core.engine import SSOEngine
     from repro_torch.core.storage import StorageTier
     from repro_torch.infer import OffloadedInference
     from repro_torch.models.gnn.layers import get_gnn
@@ -126,9 +140,10 @@ def test_engine_refuses_a_plan_on_another_device(tmp_path):
     plan.device = torch.device("meta")
     c = Counters()
     st = StorageTier(str(tmp_path), counters=c)
-    with pytest.raises(ValueError, match="plan topologies"):
-        OffloadedInference(get_gnn("gcn"), plan, [8, 8, 4], st,
-                           HostCache(1 << 20, st, c), c, device="cpu")
+    for engine in (OffloadedInference, SSOEngine):
+        with pytest.raises(ValueError, match="plan topologies"):
+            engine(get_gnn("gcn"), plan, [8, 8, 4], st,
+                   HostCache(1 << 20, st, c), c, device="cpu")
     st.close()
 
 
@@ -138,6 +153,17 @@ def test_launcher_rejects_non_gnn_and_unported_archs(capsys):
     for arch in ("mixtral-8x7b", "pna", "no-such-arch"):
         with pytest.raises(SystemExit) as ei:
             main(["--arch", arch])
+        assert ei.value.code == 2
+    out = capsys.readouterr().out
+    assert "requires a GNN arch" in out and "not ported yet" in out
+
+
+def test_train_launcher_rejects_non_gnn_and_unported_archs(capsys):
+    from repro_torch.launch.train import main
+
+    for arch in ("mixtral-8x7b", "pna", "no-such-arch"):
+        with pytest.raises(SystemExit) as ei:
+            main(["--arch", arch, "--offload"])
         assert ei.value.code == 2
     out = capsys.readouterr().out
     assert "requires a GNN arch" in out and "not ported yet" in out
