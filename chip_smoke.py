@@ -3,25 +3,35 @@
 
     python3 chip_smoke.py            # one CUDA card, nvcc under /usr/local/cuda
 
-Builds the CUDA kernels from the sources in this checkout, then:
+Builds the CUDA kernels from the sources in this checkout (one ``nvcc`` per
+source, all started together), then:
 
 - Phase A: each kernel against its plain PyTorch version at the shapes the
-  main path gives it (the largest layer-0 unit of phase C's plan; for
+  main path gives it (the largest layer-0 unit of phase D's plan; for
   ``scatter_add`` phase D's largest grad write-back that is not one
   contiguous run): ``gather_rows`` bitwise; ``gather_aggregate`` bitwise
   against the numpy FMA oracle at small shapes and, at the main-path shape,
   within ``(deg_row + 1) * 2^-23 * sum_e |w_e x_e|`` of the plain version;
   ``scatter_add`` bitwise against the ``np.add.at`` oracle at small shapes
   (duplicates, D = 7, one row, an untouched tail) and against its plain
-  version at the main-path shape, and deterministic on a rerun. Prints
-  kernel, plain, bound and library (``index_select`` / CSR
-  ``torch.sparse.mm`` / ``index_add_``) times; the port never calls the
-  library ops.
+  version at the main-path shape, and deterministic on a rerun;
+  ``edge_softmax`` within ``(deg + 4 + |s - m|) * 2^-23`` relative of the
+  float64 numpy oracle at small shapes and, at the unit's real edges with
+  H = 4 heads (GAT's hidden layers), within ``(deg_row + 4) * 2^-23``
+  relative of the plain version per element, and bitwise on a rerun.
+  Prints kernel, plain, bound and library (``index_select`` / CSR
+  ``torch.sparse.mm`` / ``index_add_`` / COO ``torch.sparse.softmax``,
+  the last checked against the plain version too) times; the port never
+  calls the library ops.
 - Phase B: the port's ``launch.infer`` default smoke on the card (2000
-  nodes, dims [24, 32, 8]): finite, pipelined == serial, served == dense.
+  nodes, dims [24, 32, 8]): finite, pipelined == serial, served == dense;
+  then the ``launch.train`` and ``launch.infer`` default smokes of each of
+  ``sage``, ``gat``, ``gin``, ``pna`` and ``graphcast``, GAT also in
+  ``kernel-fused``: finite, pipelined == serial, loss and gradients within
+  1e-4 / 5e-4 of the float64 dense oracle, served == table and == dense.
 - Phase C, serving at full width: ``gcn-igbm-3l`` widths
-  [1024, 256, 256, 19] on a 262,144-node Kronecker graph (16
-  switching-aware partitions, 512 MB host cache, so the 1.07 GB layer-0
+  [1024, 256, 256, 19] on a 65,536-node Kronecker graph (16
+  switching-aware partitions, 128 MB host cache, so the 268 MB layer-0
   table is really offloaded), the launcher's ``_infer_smoke`` in modes
   reference, kernel and kernel-fused at pipeline depth 0 and 2. Checks
   kernel == reference and pipelined == serial bitwise, kernel-fused within
@@ -29,8 +39,10 @@ Builds the CUDA kernels from the sources in this checkout, then:
   storage, and each mode's own launch counts: none in reference, one
   ``gather_rows`` per unit and layer in kernel, one ``gather_aggregate`` per
   unit and layer in kernel-fused.
-- Phase D, training at full width (the main path): the same graph, widths
-  and cache, random labels over 19 classes; the launcher's ``_train_smoke``
+- Phase D, training at full width (the main path): the same widths on a
+  262,144-node graph (16 partitions, 512 MB host cache, so the 1.07 GB
+  layer-0 table is really offloaded), random labels over 19 classes; the
+  launcher's ``_train_smoke``
   (one epoch — forward, loss, backward — and one AdamW update) in the three
   modes at depth 0 and 2. Checks finite loss and gradients, pipelined ==
   serial and kernel == reference bitwise (loss and every gradient),
@@ -41,12 +53,29 @@ Builds the CUDA kernels from the sources in this checkout, then:
   partition whose rows are not one contiguous run); ``gather_aggregate`` in
   the forward, ``gather_rows`` in the backward and the same ``scatter_add``
   count in kernel-fused.
+- Phase F, GAT training at full width: the same graph, widths and cache
+  (hidden layers 4 heads of 64, the output layer one head of 19), one epoch
+  + AdamW in modes reference and kernel-fused at depth 0 and 2. Checks
+  finite loss and gradients, pipelined == serial bitwise, kernel-fused
+  within 1e-4 (loss) and 5e-4 (gradients) of reference, and exact launch
+  counts: ``edge_softmax`` once per (run, forward or backward pass, layer,
+  unit with edges), ``gather_rows`` once per (run, pass, layer, unit) and
+  phase D's ``scatter_add`` count in kernel-fused; none in reference.
+- Phase G, the other families' training at full width: ``sage``,
+  ``gin``, ``pna`` and ``graphcast`` on the same graph, widths and cache,
+  one epoch + AdamW in kernel mode at depth 0 and 2. Checks finite loss
+  and gradients, pipelined == serial bitwise, and exact launch counts:
+  ``gather_rows`` once per (run, pass, layer, unit) and phase D's
+  ``scatter_add`` count.
 - Phase E, small: the same widths on a 20,000-node graph, where a dense
-  whole-graph autograd oracle fits: each mode's loss within 1e-4 and
-  gradients within 5e-4 of the oracle; then a 3-epoch checkpointed
-  ``run_epoch_loop`` that crashes in epoch 2 and a second loop that resumes
-  from the epoch-2 checkpoint: its final parameters equal an uninterrupted
-  run's bitwise.
+  whole-graph autograd oracle fits (float64, on the card): for GCN and
+  GAT, each mode's loss within 1e-4 and gradients within 5e-4 of it (where
+  float32 takes the other branch of some relu / leaky_relu inputs, of the
+  float64 oracle on those branches, as ``launch.train.dense_ok`` says; the
+  count of such inputs is printed), GAT's kernel == reference bitwise
+  too; then a 3-epoch checkpointed ``run_epoch_loop``
+  that crashes in epoch 2 and a second loop that resumes from the epoch-2
+  checkpoint: its final parameters equal an uninterrupted run's bitwise.
 
 Any failed check exits non-zero; no phase's failure is caught. TF32 is off
 for matmuls and cuDNN (float32 means float32 here). The last line is the
@@ -59,25 +88,41 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12         # H100 SXM float32, outside the tensor cores
-KERNEL_SOURCE = "src/repro_torch/kernels/gather_scatter/csrc/gather_scatter.cu"
+GS_SOURCE = "src/repro_torch/kernels/gather_scatter/csrc/gather_scatter.cu"
+SOURCE = {
+    "gather_rows": GS_SOURCE,
+    "gather_aggregate": GS_SOURCE,
+    "scatter_add": GS_SOURCE,
+    "edge_softmax": "src/repro_torch/kernels/edge_softmax/csrc/edge_softmax.cu",
+}
 REPLACES = {
     "gather_rows": "src/repro/kernels/gather_scatter/gather_scatter.py:50",
     "gather_aggregate": "src/repro/kernels/gather_scatter/gather_scatter.py:91",
     "scatter_add": "src/repro/kernels/gather_scatter/gather_scatter.py:141",
+    "edge_softmax": "src/repro/kernels/edge_softmax/edge_softmax.py:40",
 }
+KERNEL_PACKAGES = ("gather_scatter", "edge_softmax")
+NO_LAUNCHES = {k: 0 for k in REPLACES}
+NEW_FAMILIES = ("sage", "gat", "gin", "pna", "graphcast")
+GAT_HEADS = 4                  # GAT's hidden layers (gat_init's default)
 MODES = ("reference", "kernel", "kernel-fused")
-# phase C: gcn-igbm-3l widths on a 262,144-node graph; a 512 MB host cache
-# holds about half of the 1.07 GB layer-0 table
+# phases A, D, F, G: gcn-igbm-3l widths on a 262,144-node graph; a 512 MB
+# host cache holds about half of the 1.07 GB layer-0 table
 DIMS = [1024, 256, 256, 19]
 N_NODES = 262144
 AVG_DEGREE = 12
 N_PARTS = 16
 CACHE_MB = 512
+# phase C (serving): the same widths and cache share on a quarter of the
+# nodes, to keep the script inside its time limit
+C_NODES = 65536
+C_CACHE_MB = 128
 # phase E: the same widths on a graph whose dense oracle fits the card
 E_NODES = 20000
 E_PARTS = 8
@@ -114,6 +159,20 @@ def time_ms(fn, iters: int = 5) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def dense_report(r: dict) -> str:
+    """A ``_train_smoke`` result's errors against its float64 dense oracle,
+    with the kink readings where it took them."""
+    txt = (f"loss rel {r['dense_loss_rel_err']:.3e}, grads max rel "
+           f"{r['dense_grad_rel_err']:.3e} of the float64 oracle")
+    if "kink_flips" in r:
+        txt += f"; {r['kink_flips']} relu/leaky_relu inputs on the other side " \
+               f"of 0 in float32"
+    if "dense_grad_rel_err_f32_branches" in r:
+        txt += (f", grads max rel {r['dense_grad_rel_err_f32_branches']:.3e} "
+                f"of the float64 oracle on float32's branches there")
+    return txt
 
 
 def bound(nbytes: float, flops: float):
@@ -261,13 +320,15 @@ def phase_a(plan, d_in: int, dev):
         library_ms=time_ms(lambda: torch.sparse.mm(A, stack)),
     )
     del k, p, err, A
+    del stack
     results["scatter_add"] = phase_a_scatter(plan, DIMS[1], dev)
+    results["edge_softmax"] = phase_a_softmax(u, dev)
     for name, r in results.items():
+        lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
+               else "none")
         print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
-              f"{r['library_ms']:.4f} ms, max abs err {r['max_abs_err']:.3e}",
-              flush=True)
-    del stack
+              f"{lib}, max abs err {r['max_abs_err']:.3e}", flush=True)
     torch.cuda.empty_cache()
     return results
 
@@ -325,9 +386,92 @@ def phase_a_scatter(plan, d: int, dev) -> dict:
     return out
 
 
+def phase_a_softmax(u, dev) -> dict:
+    """``edge_softmax`` within ``(deg + 4 + |s - m|) * 2^-23`` relative of
+    the float64 numpy oracle at small shapes (the float32 ``s - m`` rounds
+    by ``|s - m| * 2^-24``, which ``exp`` turns into relative error), then
+    at unit ``u``'s real edges with ``GAT_HEADS`` heads within
+    ``(deg_row + 4) * 2^-23`` relative of its plain version per element
+    (both round ``s - m`` alike; the sums' orders differ), with times."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.edge_softmax import ops, ref
+
+    rng = np.random.default_rng(0)
+    for (n, E, H, hub) in [(200, 1500, 1, 0), (300, 2500, 4, 0),
+                           (128, 600, 8, 0), (1000, 20000, 4, 9000),
+                           (5, 3, 2, 0)]:
+        ds = rng.integers(2, n, E)
+        ds = np.sort(np.concatenate([ds[ds != n // 2],
+                                     np.full(hub, n - 3)])).astype(np.int32)
+        sc = rng.standard_normal((ds.size, H), dtype=np.float32)
+        got = ops.edge_softmax(*(torch.from_numpy(a).to(dev)
+                                 for a in (sc, ds)), n).cpu().numpy()
+        want = ref.edge_softmax_np(sc, ds, n)
+        smax = np.full((n, H), -np.inf)
+        np.maximum.at(smax, ds, sc.astype(np.float64))
+        deg = np.bincount(ds, minlength=n)[ds][:, None]
+        tol = (deg + 4 + np.abs(sc - smax[ds])) * 2.0 ** -23 * np.abs(want)
+        check(bool(np.all(np.abs(got - want) <= tol)),
+              f"edge_softmax within (deg+4+|s-m|)*2^-23 of the float64 oracle "
+              f"(n={n} E={ds.size} H={H}, hub {hub}, rows 0, 1, {n // 2} "
+              f"empty)")
+
+    topo = u.topo
+    e = topo.n_real_edges
+    dst = topo.dst[:e]
+    n_dst = topo.n_dst
+    gen = torch.Generator(device=dev).manual_seed(2)
+    scores = torch.randn((e, GAT_HEADS), generator=gen, device=dev)
+    k = ops.edge_softmax(scores, dst, n_dst)
+    p = ref.edge_softmax_ref(scores, dst, n_dst)
+    torch.cuda.synchronize()
+    check(torch.equal(ops.edge_softmax(scores, dst, n_dst), k),
+          "edge_softmax deterministic (rerun bitwise)")
+    deg = torch.bincount(dst.long(), minlength=n_dst).to(torch.float32)
+    tol = (deg.index_select(0, dst.long())[:, None] + 4) * 2.0 ** -23 * p.abs()
+    err = (k - p).abs()
+    check(bool(torch.all(err <= tol)),
+          f"edge_softmax within (deg+4)*2^-23 relative of plain per element "
+          f"at E={e} H={GAT_HEADS} n_dst={n_dst} (max err "
+          f"{float(err.max()):.3e}, max deg {int(deg.max())})")
+    # scores in and attention out once, the row ids once; sub, exp, add and
+    # divide per element
+    b_ms, b_by = bound(2 * e * GAT_HEADS * 4 + 4 * e, 4.0 * e * GAT_HEADS)
+    # the library yardstick: torch.sparse.softmax over dim 2 of the
+    # (H, n_dst, E) COO tensor with entries (h, dst[e], e) is the segment
+    # softmax; the tensor is built outside the timed region
+    heads = torch.arange(GAT_HEADS, device=dev).repeat_interleave(e)
+    edges = torch.arange(e, device=dev)
+    A = torch.sparse_coo_tensor(
+        torch.stack([heads, dst.long().repeat(GAT_HEADS),
+                     edges.repeat(GAT_HEADS)]),
+        scores.t().reshape(-1), (GAT_HEADS, n_dst, e),
+        check_invariants=True).coalesce()
+    del heads, edges
+    lib = torch.sparse.softmax(A, 2).coalesce().values()
+    lib = lib.view(GAT_HEADS, e).t()
+    lerr = (lib - p).abs()
+    check(bool(torch.all(lerr <= tol)),
+          f"library torch.sparse.softmax within (deg+4)*2^-23 relative of "
+          f"plain per element (max err {float(lerr.max()):.3e})")
+    del lib, lerr
+    out = dict(
+        max_abs_err=float(err.max()),
+        ms=time_ms(lambda: ops.edge_softmax(scores, dst, n_dst)),
+        plain_ms=time_ms(lambda: ref.edge_softmax_ref(scores, dst, n_dst)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.sparse.softmax(A, 2)),
+    )
+    del k, p, err, tol, scores, A
+    return out
+
+
 # ----------------------------------------------------------------- phase B
 def phase_b(dev):
     from repro_torch.launch.infer import _infer_smoke
+    from repro_torch.launch.train import _train_smoke, dense_ok
 
     print("phase B: launch.infer default smoke on the card", flush=True)
     r = _infer_smoke("gcn", 2, device=dev)
@@ -337,39 +481,54 @@ def phase_b(dev):
     check(r["pipeline_matches_serial"], "phase B pipelined == serial (bitwise)")
     check(r["serve_matches_table"], "phase B served == table on storage")
     check(r["serve_matches_dense"], "phase B served == dense forward")
+    for model in NEW_FAMILIES:
+        for kernels in (("auto", "kernel-fused") if model == "gat"
+                        else ("auto",)):
+            t0 = time.perf_counter()
+            r = _train_smoke(model, 2, kernels=kernels, device=dev)
+            check(r["finite"] and r["pipeline_matches_serial"]
+                  and dense_ok(r),
+                  f"phase B launch.train {model} ({kernels}): finite, "
+                  f"pipelined == serial, {dense_report(r)}")
+            r = _infer_smoke(model, 2, kernels=kernels, device=dev)
+            check(r["finite"] and r["pipeline_matches_serial"]
+                  and r["serve_matches_table"] and r["serve_matches_dense"],
+                  f"phase B launch.infer {model} ({kernels}): finite, "
+                  f"pipelined == serial, served == table == dense "
+                  f"({time.perf_counter() - t0:.1f} s both)")
+            del r
 
 
 # ----------------------------------------------------------------- phase C
-def phase_c(plan, dev):
+def phase_c(dev):
     import numpy as np
 
-    from repro_torch.kernels.gather_scatter import ops
-    from repro_torch.launch.infer import _infer_smoke
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.infer import _infer_smoke, _smoke_graph
 
-    print(f"phase C: offloaded inference at full width {DIMS}, "
-          f"{CACHE_MB} MB host cache", flush=True)
+    print(f"phase C: offloaded inference at full width {DIMS}, {C_NODES} "
+          f"nodes, {C_CACHE_MB} MB host cache", flush=True)
+    # the launcher's own graph and plan (kept in its one-entry cache)
+    _, plan = _smoke_graph(C_NODES, AVG_DEGREE, N_PARTS, dev)
     # one launch per unit and layer in each of the two runs (depth 0, 2)
     per_path = 2 * (len(DIMS) - 1) * sum(
         1 for p in plan.schedule if plan.unit(p).n_edges > 0)
     expect = {
-        "reference": {"gather_rows": 0, "gather_aggregate": 0,
-                      "scatter_add": 0},
-        "kernel": {"gather_rows": per_path, "gather_aggregate": 0,
-                   "scatter_add": 0},
-        "kernel-fused": {"gather_rows": 0, "gather_aggregate": per_path,
-                         "scatter_add": 0},
+        "reference": dict(NO_LAUNCHES),
+        "kernel": dict(NO_LAUNCHES, gather_rows=per_path),
+        "kernel-fused": dict(NO_LAUNCHES, gather_aggregate=per_path),
     }
     tables = {}
     launches = {}
     for mode in MODES:
-        ops.reset_launches()      # this path's launches start here
+        reset_launches()          # this path's launches start here
         r = _infer_smoke(
-            "gcn", 2, cache_mb=CACHE_MB, serve_cache_kb=4096, queries=16,
-            batch=256, dims=DIMS, n_nodes=N_NODES, n_parts=N_PARTS,
+            "gcn", 2, cache_mb=C_CACHE_MB, serve_cache_kb=4096, queries=16,
+            batch=256, dims=DIMS, n_nodes=C_NODES, n_parts=N_PARTS,
             avg_degree=AVG_DEGREE, kernels=mode, dense_check=False,
             device=dev,
         )
-        launches[mode] = dict(ops.LAUNCHES)
+        launches[mode] = launch_counts()
         for depth, run in r["runs"].items():
             c = run["counters"]
             busy = {k: round(v, 3) for k, v in c.stage_busy_seconds.items()}
@@ -427,7 +586,7 @@ def grads_rel_err(want, got) -> float:
 def phase_d(plan, dev):
     import torch
 
-    from repro_torch.kernels.gather_scatter import ops
+    from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.launch.train import _train_smoke
 
     print(f"phase D: offloaded training at full width {DIMS}, "
@@ -439,24 +598,23 @@ def phase_d(plan, dev):
     # unit, source partition whose rows are not one contiguous run)
     scatters = 2 * (L - 1) * len(scatter_row_sets(plan))
     expect = {
-        "reference": {"gather_rows": 0, "gather_aggregate": 0,
-                      "scatter_add": 0},
-        "kernel": {"gather_rows": 2 * 2 * L * units, "gather_aggregate": 0,
-                   "scatter_add": scatters},
-        "kernel-fused": {"gather_rows": 2 * L * units,
-                         "gather_aggregate": 2 * L * fused_units,
-                         "scatter_add": scatters},
+        "reference": dict(NO_LAUNCHES),
+        "kernel": dict(NO_LAUNCHES, gather_rows=2 * 2 * L * units,
+                       scatter_add=scatters),
+        "kernel-fused": dict(NO_LAUNCHES, gather_rows=2 * L * units,
+                             gather_aggregate=2 * L * fused_units,
+                             scatter_add=scatters),
     }
     runs = {}
     launches = {}
     for mode in MODES:
-        ops.reset_launches()      # this path's launches start here
+        reset_launches()          # this path's launches start here
         r = _train_smoke(
             "gcn", 2, dims=DIMS, n_nodes=N_NODES, n_parts=N_PARTS,
             avg_degree=AVG_DEGREE, cache_mb=CACHE_MB, kernels=mode,
             dense_check=False, device=dev,
         )
-        launches[mode] = dict(ops.LAUNCHES)
+        launches[mode] = launch_counts()
         for depth, run in r["runs"].items():
             print_run(f"{mode} depth {depth}", run)
         print(f"  {mode}: loss {r['serial_loss']!r}, launches "
@@ -484,6 +642,101 @@ def phase_d(plan, dev):
     return launches
 
 
+# ----------------------------------------------------------------- phase F
+def phase_f(plan, dev):
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.train import _train_smoke
+
+    print(f"phase F: GAT offloaded training at full width {DIMS}, "
+          f"{CACHE_MB} MB host cache, one epoch + AdamW", flush=True)
+    L = len(DIMS) - 1
+    units = len(plan.schedule)
+    edge_units = sum(1 for p in plan.schedule if plan.unit(p).n_edges > 0)
+    scatters = 2 * (L - 1) * len(scatter_row_sets(plan))
+    # two runs (depth 0, 2) x two passes (the forward, the backward's
+    # recompute) per layer and unit; the softmax only where a unit has edges
+    expect = {
+        "reference": dict(NO_LAUNCHES),
+        "kernel-fused": dict(NO_LAUNCHES, gather_rows=2 * 2 * L * units,
+                             scatter_add=scatters,
+                             edge_softmax=2 * 2 * L * edge_units),
+    }
+    runs = {}
+    launches = {}
+    for mode in expect:
+        reset_launches()          # this path's launches start here
+        r = _train_smoke(
+            "gat", 2, dims=DIMS, n_nodes=N_NODES, n_parts=N_PARTS,
+            avg_degree=AVG_DEGREE, cache_mb=CACHE_MB, kernels=mode,
+            dense_check=False, device=dev,
+        )
+        launches[mode] = launch_counts()
+        for depth, run in r["runs"].items():
+            print_run(f"gat {mode} depth {depth}", run)
+        print(f"  gat {mode}: loss {r['serial_loss']!r}, launches "
+              f"{launches[mode]}", flush=True)
+        check(r["finite"], f"gat {mode}: loss and gradients finite")
+        check(r["pipeline_matches_serial"],
+              f"gat {mode}: pipelined == serial (loss and every gradient, "
+              f"bitwise)")
+        check(launches[mode] == expect[mode],
+              f"gat {mode}: launches {launches[mode]} == {expect[mode]}")
+        runs[mode] = r["runs"][0]
+        del r
+        torch.cuda.empty_cache()
+    ref, fus = runs["reference"], runs["kernel-fused"]
+    le = abs(fus["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+    ge = grads_rel_err(ref["grads"][0], fus["grads"][0])
+    check(le <= 1e-4 and ge <= 5e-4,
+          f"gat kernel-fused within 1e-4 of reference on the loss (rel "
+          f"{le:.3e}) and 5e-4 on the gradients (max rel {ge:.3e})")
+    return launches
+
+
+# ----------------------------------------------------------------- phase G
+def phase_g(plan, dev):
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.train import _train_smoke
+
+    print(f"phase G: sage, gin, pna, graphcast offloaded training at full "
+          f"width {DIMS}, {CACHE_MB} MB host cache, one epoch + AdamW, "
+          f"kernel mode", flush=True)
+    L = len(DIMS) - 1
+    units = len(plan.schedule)
+    # two runs (depth 0, 2) x two passes (forward, backward regather) per
+    # layer and unit, and phase D's grad write-backs
+    expect = dict(NO_LAUNCHES, gather_rows=2 * 2 * L * units,
+                  scatter_add=2 * (L - 1) * len(scatter_row_sets(plan)))
+    launches = {}
+    for model in ("sage", "gin", "pna", "graphcast"):
+        t0 = time.perf_counter()
+        reset_launches()          # this path's launches start here
+        r = _train_smoke(
+            model, 2, dims=DIMS, n_nodes=N_NODES, n_parts=N_PARTS,
+            avg_degree=AVG_DEGREE, cache_mb=CACHE_MB, kernels="kernel",
+            dense_check=False, device=dev,
+        )
+        launches[model] = launch_counts()
+        for depth, run in r["runs"].items():
+            print_run(f"{model} depth {depth}", run)
+        print(f"  {model}: loss {r['serial_loss']!r}, launches "
+              f"{launches[model]} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        check(r["finite"], f"{model}: loss and gradients finite")
+        check(r["pipeline_matches_serial"],
+              f"{model}: pipelined == serial (loss and every gradient, "
+              f"bitwise)")
+        check(launches[model] == expect,
+              f"{model}: launches {launches[model]} == {expect}")
+        del r
+        torch.cuda.empty_cache()
+    return launches
+
+
 # ----------------------------------------------------------------- phase E
 def phase_e(dev):
     import shutil
@@ -497,7 +750,9 @@ def phase_e(dev):
     from repro_torch.core.storage import StorageTier
     from repro_torch.graph.synthetic import random_features, random_labels
     from repro_torch.launch.infer import _smoke_graph
-    from repro_torch.launch.train import _train_smoke
+    from repro_torch.launch.train import (
+        DENSE_GRAD_TOL, DENSE_LOSS_TOL, _train_smoke, dense_ok,
+    )
     from repro_torch.models.gnn.layers import get_gnn
     from repro_torch.optim import adamw_init, adamw_update
     from repro_torch.runtime import PipelineConfig
@@ -505,21 +760,30 @@ def phase_e(dev):
 
     print(f"phase E: {E_NODES} nodes at widths {DIMS} vs a dense autograd "
           f"oracle; checkpointed epoch loop with a resume", flush=True)
-    for mode in MODES:
-        r = _train_smoke(
-            "gcn", 2, dims=DIMS, n_nodes=E_NODES, n_parts=E_PARTS,
-            avg_degree=AVG_DEGREE, cache_mb=E_CACHE_MB, kernels=mode,
-            dense_check=True, device=dev,
-        )
-        check(r["finite"] and r["pipeline_matches_serial"],
-              f"{mode}: finite, pipelined == serial (bitwise)")
-        check(r["dense_loss_rel_err"] <= 1e-4
-              and r["dense_grad_rel_err"] <= 5e-4,
-              f"{mode}: loss within 1e-4 (rel {r['dense_loss_rel_err']:.3e}) "
-              f"and gradients within 5e-4 (max rel "
-              f"{r['dense_grad_rel_err']:.3e}) of the dense oracle")
-        del r
-        torch.cuda.empty_cache()
+    for model in ("gcn", "gat"):
+        serial = {}
+        for mode in MODES:
+            r = _train_smoke(
+                model, 2, dims=DIMS, n_nodes=E_NODES, n_parts=E_PARTS,
+                avg_degree=AVG_DEGREE, cache_mb=E_CACHE_MB, kernels=mode,
+                dense_check=True, device=dev,
+            )
+            check(r["finite"] and r["pipeline_matches_serial"],
+                  f"{model} {mode}: finite, pipelined == serial (bitwise)")
+            check(dense_ok(r),
+                  f"{model} {mode}: loss within {DENSE_LOSS_TOL} and "
+                  f"gradients within {DENSE_GRAD_TOL} ({dense_report(r)})")
+            serial[mode] = r["runs"][0]
+            del r
+            torch.cuda.empty_cache()
+        ker, ref = serial["kernel"], serial["reference"]
+        check(ker["losses"] == ref["losses"]
+              and all(torch.equal(a[k], b[k])
+                      for a, b in zip(ker["grads"][0], ref["grads"][0])
+                      for k in a),
+              f"{model}: kernel == reference (loss and every gradient, "
+              f"bitwise)")
+        del serial, ker, ref
 
     g, plan = _smoke_graph(E_NODES, AVG_DEGREE, E_PARTS, dev)
     X = random_features(g.n_nodes, DIMS[0], 0)[plan.ro.perm]
@@ -599,22 +863,32 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.load("gather_scatter")
+    # one nvcc per source, all started together (each package has its own
+    # build lock)
+    with ThreadPoolExecutor(len(KERNEL_PACKAGES)) as ex:
+        list(ex.map(_build.load, KERNEL_PACKAGES))
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
-    print(_build.build_log("gather_scatter").strip(), flush=True)
+    for pkg in KERNEL_PACKAGES:
+        print(_build.build_log(pkg).strip(), flush=True)
 
     t_all = time.perf_counter()
-    # B first: the launcher keeps one graph, so the full-width one is then
-    # built once for A, C and D
+    # B and C first: the launcher keeps one graph, so the full-width one is
+    # then built once for A, D, F and G
     phase_b(dev)
+    t0 = time.perf_counter()
+    serving = phase_c(dev)
+    print(f"phase C: {time.perf_counter() - t0:.1f} s", flush=True)
     plan = build_full_width(dev)
     results = phase_a(plan, DIMS[0], dev)
     t0 = time.perf_counter()
-    serving = phase_c(plan, dev)
-    print(f"phase C: {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
     training = phase_d(plan, dev)
     print(f"phase D: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    gat = phase_f(plan, dev)
+    print(f"phase F: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    families = phase_g(plan, dev)
+    print(f"phase G: {time.perf_counter() - t0:.1f} s", flush=True)
     del plan
     t0 = time.perf_counter()
     phase_e(dev)
@@ -623,11 +897,14 @@ def main() -> int:
 
     kernels = []
     for name, r in results.items():
-        # each kernel's launches over the serving and training paths, every
-        # mode's count read right after that mode's two runs
+        # each kernel's launches over the serving, GCN training, GAT
+        # training and other families' training paths, every count read
+        # right after its two runs
         n = sum(serving[m][name] + training[m][name] for m in MODES)
+        n += sum(counts[name] for counts in gat.values())
+        n += sum(counts[name] for counts in families.values())
         kernels.append(dict(
-            name=name, route="cuda", source=KERNEL_SOURCE,
+            name=name, route="cuda", source=SOURCE[name],
             replaces=REPLACES[name], launches=n, **r,
         ))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,4 +11,43 @@ kernels or to the reference path by mode and device.
   staged partition stack), ``gather_aggregate`` (one-kernel GCN
   gather+aggregate) and ``scatter_add_`` (the backward's sorted grad
   write-back).
+- edge_softmax: ``edge_softmax`` (GAT's per-destination attention softmax;
+  ``EdgeSoftmax`` adds its plain, deterministic backward).
+
+:func:`launch_counts` reads every kernel's launches since the last
+:func:`reset_launches`.
 """
+from typing import Dict
+
+from repro_torch.kernels.edge_softmax import ops as _es_ops
+from repro_torch.kernels.edge_softmax.ops import EdgeSoftmax, edge_softmax
+from repro_torch.kernels.edge_softmax.ref import (
+    edge_softmax_backward_ref, edge_softmax_np, edge_softmax_ref,
+)
+from repro_torch.kernels.gather_scatter import ops as _gs_ops
+from repro_torch.kernels.gather_scatter.ops import (
+    gather_aggregate, gather_rows, scatter_add_,
+)
+from repro_torch.kernels.gather_scatter.ref import (
+    gather_aggregate_ref, gather_aggregate_ref_fma, gather_rows_ref,
+    scatter_add_ref, scatter_add_ref_np,
+)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches per kernel since the last :func:`reset_launches`."""
+    return {**_gs_ops.LAUNCHES, **_es_ops.LAUNCHES}
+
+
+def reset_launches() -> None:
+    _gs_ops.reset_launches()
+    _es_ops.reset_launches()
+
+
+__all__ = [
+    "EdgeSoftmax", "edge_softmax", "gather_aggregate", "gather_rows",
+    "launch_counts", "reset_launches", "scatter_add_",
+    "edge_softmax_backward_ref", "edge_softmax_np", "edge_softmax_ref",
+    "gather_aggregate_ref", "gather_aggregate_ref_fma", "gather_rows_ref",
+    "scatter_add_ref", "scatter_add_ref_np",
+]

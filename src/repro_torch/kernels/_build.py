@@ -11,6 +11,8 @@ hash of the sources and the flags, so an edited source rebuilds and an
 unchanged one is reused within a checkout. ``nvcc``'s own output (``-Xptxas
 -v``: registers, shared memory, spills per kernel) is kept beside the
 library as ``build.log``. A failed build raises; nothing falls back.
+Each package has its own build lock, so packages loaded from several
+threads at once compile in parallel, one ``nvcc`` each.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ NVCC_FLAGS = ARCH_FLAGS + [
 ]
 
 _lock = threading.Lock()
+_build_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -88,6 +91,8 @@ def build_log(name: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel package ``name``, built on first use."""
     with _lock:
+        name_lock = _build_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is None:
             path = library_path(name)

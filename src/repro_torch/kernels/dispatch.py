@@ -17,17 +17,24 @@ they go through a :class:`KernelDispatch` built from
   CPU device the wrapper runs its plain version (how the CPU tests drive
   the stacked path).
 - ``"kernel-fused"``: additionally route the GCN forward through the
-  one-kernel ``gather_aggregate``. One fused multiply-add per edge:
+  one-kernel ``gather_aggregate`` (one fused multiply-add per edge:
   deterministic, but ~1 ulp off the reference's multiply-then-add on rows
-  with two or more edges. Opt-in for exactly that reason.
+  with two or more edges), and GAT's attention softmax, in its forward and
+  in its backward's recompute, through the ``edge_softmax`` kernel
+  (:meth:`KernelDispatch.edge_softmax`; it sums each destination's
+  exponentials in its own warp order, so it too is deterministic but a few
+  ulp off the reference's segment sum). Opt-in for exactly that reason:
+  ``kernel`` == ``reference`` bitwise holds for every family, and
+  ``kernel-fused`` is held to a tolerance.
 
 The training half:
 
 - The backward keeps the vjp boundary at ``GA``: :meth:`fused_backward_fn`
   regathers on the device (``gather_rows``, a bitwise copy) and
-  differentiates the unchanged layer, so no backward kernel is needed and
-  the gradients equal the reference path's bitwise — in ``kernel-fused``
-  too (only its forward is fused).
+  differentiates the layer, so no backward kernel is needed. Its gradients
+  equal the reference path's bitwise, in ``kernel-fused`` too for every
+  family but GAT, whose recompute runs the ``edge_softmax`` kernel forward
+  (its backward is the plain softmax vjp, ``EdgeSoftmax``).
 - The ∇A write-back :meth:`KernelDispatch.scatter_add_rows` dispatches by
   shape: a contiguous row run (the loss layer's ``arange``, dense regather
   runs), or a reference mode, takes the host slice-add / ``reduceat`` path
@@ -51,8 +58,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.edge_softmax.ops import EdgeSoftmax
 from repro_torch.kernels.gather_scatter import ops
-from repro_torch.models.gnn.layers import apply_vjp
+from repro_torch.models.gnn.layers import LocalTopo, apply_vjp
 
 VALID_MODES = ("auto", "reference", "kernel", "kernel-fused")
 
@@ -124,8 +132,9 @@ class KernelDispatch:
 
     @property
     def fused_aggregate(self) -> bool:
-        """One-kernel GCN gather+aggregate (FMA accumulation — see module
-        docstring). Deterministic but ~1 ulp off the reference order."""
+        """One-kernel GCN gather+aggregate and GAT's kernel softmax (see
+        the module docstring). Deterministic but a few ulp off the
+        reference order."""
         return self.mode == "kernel-fused"
 
     def _span(self, name: str, t: torch.Tensor, t0: float) -> None:
@@ -154,27 +163,19 @@ class KernelDispatch:
         """``f(layer, stack, idx, topo) -> out`` for one forward layer over
         the staged partition stack. Default: regather on the device
         (:meth:`gather_rows`) and run the unchanged ``apply_layer`` — same
-        ``GA_p``, same bits as the reference path. ``"kernel-fused"`` + GCN
-        gets the one-kernel gather+aggregate instead."""
+        ``GA_p``, same bits as the reference path. In ``"kernel-fused"`` a
+        family's ``spec.fused_forward`` (GCN: the one-kernel
+        gather+aggregate) or ``spec.fused_apply`` (GAT: the kernel softmax)
+        takes its place."""
         key = (spec.name, activate)
         if key not in self._fwd:
-            if spec.name == "gcn" and self.fused_aggregate:
+            if self.fused_aggregate and spec.fused_forward is not None:
+                fused = spec.fused_forward
+
                 def f(layer, stack, idx, topo):
-                    # only the real-edge prefix goes to the kernel: the
-                    # padding tail (weight 0) would add exactly +0 to a sum
-                    # that is never -0, so dropping it leaves the bits
-                    # unchanged and keeps dst sorted (the reference
-                    # re-points the padding at the last row instead, whose
-                    # block would then walk up to half of e_pad zero edges)
-                    e = topo.n_real_edges
-                    agg = self.gather_aggregate(
-                        stack, idx.index_select(0, topo.src[:e]),
-                        topo.dst[:e], topo.edge_weight[:e], topo.n_dst,
-                    )
-                    h = layer.lin(agg)
-                    return torch.relu(h) if activate else h
+                    return fused(self, layer, stack, idx, topo, activate)
             else:
-                apply = spec.apply_layer
+                apply = self._apply_fn(spec)
 
                 def f(layer, stack, idx, topo):
                     return apply(layer, self.gather_rows(stack, idx), topo,
@@ -183,13 +184,41 @@ class KernelDispatch:
             self._fwd[key] = f
         return self._fwd[key]
 
+    def _apply_fn(self, spec):
+        """The layer function the stacked paths run: the family's own, or
+        its ``spec.fused_apply`` variant in ``"kernel-fused"``."""
+        if self.fused_aggregate and spec.fused_apply is not None:
+            return spec.fused_apply(self)
+        return spec.apply_layer
+
+    def edge_softmax(self, score: torch.Tensor,
+                     topo: LocalTopo) -> torch.Tensor:
+        """GAT's attention softmax through the ``edge_softmax`` kernel
+        (differentiable: :class:`EdgeSoftmax`). Only the real-edge prefix
+        ``[0, n_real_edges)`` goes to the kernel — its ``dst`` is sorted,
+        while the padding tail points back at row 0 — and the padding gets
+        attention 0, as the reference's mask gives it. The kernel clamps the
+        denominator at 1e-30 where ``gat_softmax`` clamps at 1e-9: the same
+        result, since a row with a real edge sums ``exp(0) = 1`` for its
+        maximum (denominator >= 1) and a row with none has no edge to
+        divide."""
+        t0 = time.perf_counter()
+        e = topo.n_real_edges
+        attn = EdgeSoftmax.apply(score[:e], topo.dst[:e], topo.n_dst)
+        self._span("edge_softmax", score, t0)
+        pad = score.shape[0] - e
+        if pad:
+            attn = torch.cat([attn, attn.new_zeros((pad,) + attn.shape[1:])])
+        return attn
+
     def fused_backward_fn(self, spec, activate: bool):
         """``f(layer, stack, idx, topo, d_out) -> (dp, dga)`` for one
         backward layer over the staged partition stack: regather ``GA`` on
-        the device (:meth:`gather_rows`, a bitwise copy), then the unchanged
-        layer's vjp at ``GA`` (:func:`apply_vjp`) — the reference backward's
-        arithmetic on the same ``GA``, so the same bits."""
-        apply = spec.apply_layer
+        the device (:meth:`gather_rows`, a bitwise copy), then the layer's
+        vjp at ``GA`` (:func:`apply_vjp`) — the reference backward's
+        arithmetic on the same ``GA``, so the same bits (GAT in
+        ``"kernel-fused"`` recomputes its softmax with the kernel)."""
+        apply = self._apply_fn(spec)
 
         def f(layer, stack, idx, topo, d_out):
             return apply_vjp(apply, layer, self.gather_rows(stack, idx),

@@ -7,8 +7,8 @@ pipelined run, each of ``epochs`` epochs (forward, loss, backward) followed
 by an AdamW update — and checks that the losses and gradients are finite
 and that the pipelined run equals the serial one bitwise.
 
-Exit status 0 iff every check passes; 2 for a non-GNN or unported arch, or
-without ``--offload`` (the reference's ``--smoke`` / dry-run paths run
+Exit status 0 iff every check passes; 2 for a non-GNN arch, or without
+``--offload`` (the reference's ``--smoke`` / dry-run paths run
 non-GNN models, which are not ported). The reference launcher's
 ``--telemetry-port`` and ``--ledger`` options are not carried over yet (the
 live exporter and the run ledger are not ported).
@@ -29,6 +29,21 @@ def _rel_err(a, b) -> float:
     a = a.detach().double().cpu().numpy()
     b = b.detach().double().cpu().numpy()
     return float(np.max(np.abs(a - b)) / max(np.max(np.abs(a)), 1e-12))
+
+
+# the dense oracle check (float64 oracle): loss and max-relative gradients
+DENSE_LOSS_TOL = 1e-4
+DENSE_GRAD_TOL = 5e-4
+
+
+def dense_ok(r: dict) -> bool:
+    """``_train_smoke``'s dense oracle check: the loss within
+    ``DENSE_LOSS_TOL`` and the gradients within ``DENSE_GRAD_TOL`` of the
+    float64 oracle, or, where float32 takes the other branch of some kinks,
+    of the float64 oracle on those branches (see ``_train_smoke``)."""
+    return r["dense_loss_rel_err"] <= DENSE_LOSS_TOL and (
+        r["dense_grad_rel_err"] <= DENSE_GRAD_TOL
+        or r.get("dense_grad_rel_err_f32_branches", 1.0) <= DENSE_GRAD_TOL)
 
 
 def _train_smoke(
@@ -56,10 +71,21 @@ def _train_smoke(
     Each run initialises fresh weights (``torch.Generator`` seed 0) and
     AdamW state, then runs ``epochs`` epochs, each one ``run_epoch`` and one
     ``adamw_update``. With ``dense_check`` the first epoch's loss and
-    gradients are held against a dense whole-graph autograd oracle (off
-    where the whole graph's messages do not fit on the device). ``runs``
+    gradients are held against a dense whole-graph autograd oracle in
+    float64 on ``device`` (off where the whole graph's messages do not fit
+    on the device): ``dense_loss_rel_err`` / ``dense_grad_rel_err``, within
+    ``DENSE_LOSS_TOL`` / ``DENSE_GRAD_TOL`` by :func:`dense_ok`. Where the
+    gradients are not, the oracle counts ``kink_flips``: the ``relu`` /
+    ``leaky_relu`` inputs whose sign a float32 forward of the oracle gets
+    the other way (:class:`~repro_torch.models.gnn.layers.KinkProbe`). A
+    kink's gradient jumps across 0, so one such element moves a whole
+    weight's gradient (GAT at 20,000 nodes on the card: ~3e-3). With flips,
+    ``dense_grad_rel_err_f32_branches`` is the error against the float64
+    oracle run on the float32 branches, float64 everywhere else; it is held
+    to the same tolerance. ``runs``
     maps each depth to its per-epoch losses, grads and wall seconds, its
     ``Counters`` and its peak device bytes."""
+    import dataclasses
     import tempfile
     import time
 
@@ -73,7 +99,7 @@ def _train_smoke(
     from repro_torch.device import resolve_device
     from repro_torch.graph.synthetic import random_features, random_labels
     from repro_torch.models.gnn.layers import (
-        full_graph_loss, full_graph_topo, get_gnn,
+        full_graph_loss, full_graph_topo, get_gnn, kink_probe,
     )
     from repro_torch.optim import adamw_init, adamw_update
     from repro_torch.runtime import PipelineConfig
@@ -162,21 +188,44 @@ def _train_smoke(
         wall_s=piped["wall_s"][-1],
     )
     if dense_check:
-        # the oracle at the weights of the first epoch: fresh init
-        params = init_params()
+        # the oracle at the weights of the first epoch (fresh init)
         rg = plan.ro.graph
-        topo = full_graph_topo(rg.indptr, rg.indices, rg.n_nodes,
-                               plan.edge_weight, device=device)
-        loss = full_graph_loss(spec, params, X, topo, Y)
-        loss.backward()
-        loss = float(loss.detach())
-        want = [p.grad for layer in params for p in layer.parameters()]
-        del topo
         got = [t for layer in serial["grads"][0] for t in layer.values()]
-        out["dense_grad_rel_err"] = max(
-            _rel_err(w, gt) for w, gt in zip(want, got))
-        out["dense_loss_rel_err"] = abs(
-            serial["losses"][0] - loss) / max(1.0, abs(loss))
+
+        def oracle(dt, force=None, grad=True):
+            """(loss, gradients, kink signs) of the whole-graph oracle in
+            ``dt``: weights, features and the topology's float fields."""
+            params = init_params().to(dt)
+            topo = full_graph_topo(rg.indptr, rg.indices, rg.n_nodes,
+                                   plan.edge_weight, device=device)
+            topo = dataclasses.replace(
+                topo, edge_weight=topo.edge_weight.to(dt),
+                edge_mask=topo.edge_mask.to(dt), in_deg=topo.in_deg.to(dt))
+            x = X.astype(np.float64) if dt == torch.float64 else X
+            with kink_probe(force) as probe, torch.set_grad_enabled(grad):
+                loss = full_graph_loss(spec, params, x, topo, Y)
+                if grad:
+                    loss.backward()
+            want = [p.grad for layer in params for p in layer.parameters()]
+            return float(loss.detach()), want, probe.signs
+
+        def grad_err(want):
+            return max(_rel_err(w, gt) for w, gt in zip(want, got))
+
+        loss, want, signs64 = oracle(torch.float64)
+        out["dense_loss_rel_err"] = (
+            abs(serial["losses"][0] - loss) / max(1.0, abs(loss)))
+        out["dense_grad_rel_err"] = grad_err(want)
+        del want
+        if out["dense_grad_rel_err"] > DENSE_GRAD_TOL:
+            _, _, signs32 = oracle(torch.float32, grad=False)
+            out["kink_flips"] = sum(int((a != b).sum())
+                                    for a, b in zip(signs32, signs64))
+            if out["kink_flips"]:
+                out["dense_grad_rel_err_f32_branches"] = grad_err(
+                    oracle(torch.float64, force=signs32)[1])
+            del signs32
+        del signs64
     out["runs"] = runs
     return out
 
@@ -207,17 +256,11 @@ def main(argv: Optional[Sequence[str]] = None):
         logging.basicConfig(level=logging.INFO,
                             format="%(name)s %(message)s")
 
-    from repro_torch.models.gnn.layers import GNN_REGISTRY
-
     if args.arch not in GNN_ARCHS:
         print(f"{args.arch}: training requires a GNN arch "
               f"(one of {sorted(GNN_ARCHS)})")
         sys.exit(2)
     model = GNN_ARCHS[args.arch]
-    if model not in GNN_REGISTRY:
-        print(f"{args.arch}: model {model!r} is not ported yet "
-              f"(ported: {sorted(GNN_REGISTRY)})")
-        sys.exit(2)
     if not args.offload:
         print(f"{args.arch}: only --offload (the SSO engine) is ported")
         sys.exit(2)
@@ -230,12 +273,7 @@ def main(argv: Optional[Sequence[str]] = None):
     print(f"{args.arch} offload smoke: {r}")
     if args.trace:
         print(f"trace written to {args.trace}")
-    ok = (
-        r["finite"]
-        and r["pipeline_matches_serial"]
-        and r.get("dense_loss_rel_err", 0.0) <= 1e-4
-        and r.get("dense_grad_rel_err", 0.0) <= 5e-4
-    )
+    ok = r["finite"] and r["pipeline_matches_serial"] and dense_ok(r)
     sys.exit(0 if ok else 1)
 
 

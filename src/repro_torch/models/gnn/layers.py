@@ -10,16 +10,23 @@ and ``topo`` is the partition-local (or full-graph) edge structure.
 per-(layer, unit) backward).
 
 Message passing is an edge gather (:func:`edge_gather`) followed by
-:func:`seg_sum`, a segment sum over ``dst`` that gives the same bits on
-every run on either device (see its docstring); the gather's backward is
-the same segment sum over ``src``. Forward and backward are therefore
-deterministic — the property the pipelined == serial and kernel ==
-reference checks rest on. Only GCN is ported so far.
+:func:`seg_sum` (or :func:`seg_max`), a segment reduction over ``dst`` that
+gives the same bits on every run on either device (see their docstrings);
+every row gather's backward is the same segment sum over its indices.
+Forward and backward are therefore deterministic — the property the
+pipelined == serial and kernel == reference checks rest on.
+
+The six families of the reference (``gcn``, ``sage``, ``gat``, ``gin``,
+``pna``, ``graphcast``) are ported with the reference's order of
+operations and its guards. Parameter names follow the reference's keys
+(``self`` becomes ``lin_self``); ``repro_torch.params`` maps them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from functools import partial
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -81,6 +88,61 @@ def seg_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
+class _SegMax(torch.autograd.Function):
+    """:func:`seg_max` with a backward that keeps no ``(E, d)`` index:
+    PyTorch's own ``scatter_reduce`` wants its index in the source's shape
+    and saves it (``E * d`` int64, 17 GB for PNA's 2 M x 1024 messages),
+    where one row id per edge does."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, seg: torch.Tensor, n: int):
+        out = x.new_full((n,) + tuple(x.shape[1:]), float("-inf"))
+        if x.shape[0]:
+            # a stride-0 view, never materialised
+            idx = seg.long().view((-1,) + (1,) * (x.dim() - 1)).expand_as(x)
+            out = out.scatter_reduce(0, idx, x, "amax", include_self=False)
+        ctx.save_for_backward(x, seg, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, seg, out = ctx.saved_tensors
+        hit = (x == out.index_select(0, seg)).to(x.dtype)
+        # tie counts: sums of 0 and 1, exact in any order
+        count = torch.zeros_like(out).index_add_(0, seg, hit)
+        return (g / count).index_select(0, seg).mul_(hit), None, None
+
+
+def seg_max(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    """``out[s] = max(x[i] for seg[i] == s)``, ``-inf`` for an empty
+    segment — the counterpart of ``jax.ops.segment_max``.
+
+    ``scatter_reduce(..., "amax", include_self=False)`` over a ``-inf``
+    base. Its backward (:class:`_SegMax`, the arithmetic of PyTorch's own)
+    splits the cotangent evenly among the tied maxima (``x[i] ==
+    out[seg[i]]``) as JAX's does; the tie counts are a sum of ones, exact
+    in any order, and the split is gathered back, so the backward has no
+    order-dependent float sum. The forward's max is order-free, except that
+    a segment holding both ``+0`` and ``-0`` may keep either zero on a CUDA
+    device: they compare equal, so the tie counts and every later sum that
+    adds a nonzero term keep their bits."""
+    return _SegMax.apply(x, seg, n)
+
+
+def _maximum(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``jnp.maximum(x, c)``: ``torch.maximum`` splits the gradient evenly
+    on a tie, as JAX does (``clamp_min`` would pass all of it)."""
+    return torch.maximum(x, x.new_full((), c))
+
+
+def _layernorm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """The reference's manual LayerNorm (no affine): mean, biased variance,
+    ``rsqrt(var + eps)``, in that order."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps)
+
+
 class _EdgeGather(torch.autograd.Function):
     """``ga[src]`` whose backward is :func:`seg_sum` over ``src``. PyTorch's
     own ``index_select`` backward is ``index_add_``, which uses float
@@ -100,8 +162,81 @@ class _EdgeGather(torch.autograd.Function):
 
 
 def edge_gather(ga: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """``ga[src]`` (rows of ``ga`` per edge) with a deterministic backward."""
+    """``ga[src]`` (rows of ``ga`` per edge, any trailing shape) with a
+    deterministic backward."""
     return _EdgeGather.apply(ga, src)
+
+
+def _dense(d_in: int, d_out: int, generator: torch.Generator,
+           device: DeviceLike, scale: Optional[float] = None) -> nn.Linear:
+    """The reference's ``_dense``: weight ``N(0, 1) * scale`` (default
+    ``1/sqrt(d_in)``), zero bias. ``skip_init``: no draw from the global
+    RNG; the weight is drawn on the CPU from the explicit generator, so
+    one seed gives the same weights on every device."""
+    scale = scale if scale is not None else 1.0 / np.sqrt(d_in)
+    lin = nn.utils.skip_init(nn.Linear, d_in, d_out, device=device)
+    with torch.no_grad():
+        w = torch.randn((d_out, d_in), generator=generator)
+        lin.weight.copy_(w * scale)
+        lin.bias.zero_()
+    return lin
+
+
+def _param(t: torch.Tensor, device: DeviceLike) -> nn.Parameter:
+    return nn.Parameter(t.to(device=device, dtype=torch.float32))
+
+
+class KinkProbe:
+    """Watches the ReLU-family kinks the layer functions evaluate (every
+    ``relu`` and ``leaky_relu``, in call order): ``signs[i]`` is call
+    ``i``'s ``input > 0``. With ``force`` (such a list, from another run of
+    the same forward) call ``i`` takes the branch ``force[i]`` instead of
+    its input's sign: ``x`` where True, ``slope * x`` where False. A kink's
+    gradient jumps across 0, so where float32 and float64 land on opposite
+    sides of it the two gradients differ by that jump; forcing one run onto
+    the other's branches removes exactly that difference."""
+
+    def __init__(self, force: Optional[List[torch.Tensor]] = None):
+        self.force = force
+        self.signs: List[torch.Tensor] = []
+
+    def __call__(self, x: torch.Tensor, slope: float) -> torch.Tensor:
+        pos = x.detach() > 0
+        branch = pos if self.force is None else self.force[len(self.signs)]
+        self.signs.append(pos)
+        other = x * slope if slope else x.new_zeros(())
+        return torch.where(branch, x, other)
+
+
+_probe: Optional[KinkProbe] = None
+
+
+@contextlib.contextmanager
+def kink_probe(force: Optional[List[torch.Tensor]] = None
+               ) -> Iterator[KinkProbe]:
+    """Route every kink of the layer functions through a
+    :class:`KinkProbe` while the block runs (one thread: the dense
+    oracle's)."""
+    global _probe
+    _probe = KinkProbe(force)
+    try:
+        yield _probe
+    finally:
+        _probe = None
+
+
+def _relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x) if _probe is None else _probe(x, 0.0)
+
+
+def _leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    if _probe is None:
+        return torch.nn.functional.leaky_relu(x, slope)
+    return _probe(x, slope)
+
+
+def _out(h: torch.Tensor, activate: bool) -> torch.Tensor:
+    return _relu(h) if activate else h
 
 
 def apply_vjp(apply: Callable, layer: nn.Module, ga: torch.Tensor,
@@ -130,15 +265,7 @@ class GCNLayer(nn.Module):
         device: DeviceLike = None,
     ):
         super().__init__()
-        # skip_init: no draw from the global RNG; weights come from the
-        # explicit generator (or from converted reference params)
-        self.lin = nn.utils.skip_init(nn.Linear, d_in, d_out, device=device)
-        with torch.no_grad():
-            # the reference's N(0, 1/d_in) init, drawn on the CPU so one
-            # seed gives the same weights on every device
-            w = torch.randn((d_out, d_in), generator=generator)
-            self.lin.weight.copy_(w * (1.0 / np.sqrt(d_in)))
-            self.lin.bias.zero_()
+        self.lin = _dense(d_in, d_out, generator, device)
 
 
 def gcn_apply(layer: GCNLayer, ga: torch.Tensor, topo: LocalTopo,
@@ -151,8 +278,224 @@ def gcn_apply(layer: GCNLayer, ga: torch.Tensor, topo: LocalTopo,
     msg.mul_(topo.edge_weight[:, None])
     agg = seg_sum(msg, topo.dst, topo.n_dst)
     del msg
-    h = layer.lin(agg)
-    return torch.relu(h) if activate else h
+    return _out(layer.lin(agg), activate)
+
+
+def gcn_fused_forward(kd: Any, layer: GCNLayer, stack: torch.Tensor,
+                      idx: torch.Tensor, topo: LocalTopo,
+                      activate: bool = True) -> torch.Tensor:
+    """GCN's ``kernel-fused`` forward over the staged partition stack: the
+    dispatcher ``kd``'s one-kernel ``gather_aggregate`` in place of the
+    gather, scale and segment sum. Only the real-edge prefix goes to the
+    kernel: the padding tail (weight 0) would add exactly +0 to a sum that
+    is never -0, so dropping it leaves the bits unchanged and keeps ``dst``
+    sorted (the reference re-points the padding at the last row instead,
+    whose block would then walk up to half of ``e_pad`` zero edges)."""
+    e = topo.n_real_edges
+    agg = kd.gather_aggregate(stack, idx.index_select(0, topo.src[:e]),
+                              topo.dst[:e], topo.edge_weight[:e], topo.n_dst)
+    return _out(layer.lin(agg), activate)
+
+
+# --------------------------------------------------------------------------
+# GraphSAGE (mean aggregator)
+# --------------------------------------------------------------------------
+
+class SAGELayer(nn.Module):
+    """``lin_self`` (the reference's ``self``) on the vertex's own row,
+    ``nbr`` on the mean of its in-neighbours."""
+
+    def __init__(self, d_in: int, d_out: int, *, generator: torch.Generator,
+                 device: DeviceLike = None):
+        super().__init__()
+        self.lin_self = _dense(d_in, d_out, generator, device)
+        self.nbr = _dense(d_in, d_out, generator, device)
+
+
+def sage_apply(layer: SAGELayer, ga: torch.Tensor, topo: LocalTopo,
+               activate: bool = True) -> torch.Tensor:
+    msg = edge_gather(ga, topo.src)
+    msg.mul_(topo.edge_mask[:, None])
+    agg = seg_sum(msg, topo.dst, topo.n_dst) / topo.in_deg[:, None]
+    del msg
+    x_self = edge_gather(ga, topo.dst_self)
+    return _out(layer.lin_self(x_self) + layer.nbr(agg), activate)
+
+
+# --------------------------------------------------------------------------
+# GAT (single-/multi-head graph attention)
+# --------------------------------------------------------------------------
+
+class GATLayer(nn.Module):
+    """``w`` ``(d_in, H, d_head)``, ``a_src``/``a_dst`` ``(H, d_head)``,
+    ``b`` ``(H * d_head,)`` — the reference's layout. ``n_heads`` heads, or
+    one where ``d_out % n_heads != 0``."""
+
+    def __init__(self, d_in: int, d_out: int, *, generator: torch.Generator,
+                 device: DeviceLike = None, n_heads: int = 4):
+        super().__init__()
+        if d_out % n_heads:
+            n_heads = 1
+        d_head = d_out // n_heads
+        g = generator
+        self.w = _param(torch.randn((d_in, n_heads, d_head), generator=g)
+                        / np.sqrt(d_in), device)
+        self.a_src = _param(
+            torch.randn((n_heads, d_head), generator=g) * 0.1, device)
+        self.a_dst = _param(
+            torch.randn((n_heads, d_head), generator=g) * 0.1, device)
+        self.b = _param(torch.zeros((n_heads * d_head,)), device)
+
+
+def gat_softmax(score: torch.Tensor, topo: LocalTopo) -> torch.Tensor:
+    """The reference's per-destination attention softmax over ``score``
+    ``(E, H)``, padding included: padded edges are masked to
+    ``finfo.min``, the segment max is floored at ``-1e30`` (an all-padding
+    segment), the exponentials are masked and the denominator clamped at
+    ``1e-9``. Padded edges get attention 0."""
+    mask = topo.edge_mask[:, None]
+    score = torch.where(mask > 0, score, torch.finfo(score.dtype).min)
+    smax = _maximum(seg_max(score, topo.dst, topo.n_dst), -1e30)
+    ex = torch.exp(score - edge_gather(smax, topo.dst)) * mask
+    den = seg_sum(ex, topo.dst, topo.n_dst)
+    return ex / _maximum(edge_gather(den, topo.dst), 1e-9)
+
+
+def gat_apply(layer: GATLayer, ga: torch.Tensor, topo: LocalTopo,
+              activate: bool = True,
+              softmax: Callable[[torch.Tensor, LocalTopo],
+                                torch.Tensor] = gat_softmax) -> torch.Tensor:
+    """``softmax(score, topo) -> attn`` normalises the ``(E, H)`` scores
+    per destination: :func:`gat_softmax` by default; the kernel dispatcher
+    passes the ``edge_softmax`` kernel in its ``kernel-fused`` mode."""
+    d_in, n_heads, d_head = layer.w.shape
+    h = (ga @ layer.w.reshape(d_in, n_heads * d_head)).reshape(
+        -1, n_heads, d_head)                                  # (n_src, H, dh)
+    e_src = torch.einsum("nhe,he->nh", h, layer.a_src)
+    e_dst = torch.einsum("nhe,he->nh", h, layer.a_dst)
+    score = _leaky_relu(
+        edge_gather(e_src, topo.src)
+        + edge_gather(edge_gather(e_dst, topo.dst_self), topo.dst),
+        0.2,
+    )                                                         # (E, H)
+    attn = softmax(score, topo)
+    msg = edge_gather(h, topo.src) * attn[:, :, None]
+    agg = seg_sum(msg, topo.dst, topo.n_dst)                  # (n_dst, H, dh)
+    del msg
+    out = agg.reshape(topo.n_dst, -1) + layer.b
+    return torch.nn.functional.elu(out) if activate else out
+
+
+def gat_fused_apply(kd: Any) -> Callable[..., torch.Tensor]:
+    """GAT's ``kernel-fused`` layer function: :func:`gat_apply` with the
+    dispatcher ``kd``'s ``edge_softmax`` kernel as its softmax."""
+    return partial(gat_apply, softmax=kd.edge_softmax)
+
+
+# --------------------------------------------------------------------------
+# GIN
+# --------------------------------------------------------------------------
+
+class GINLayer(nn.Module):
+    """Two dense layers and the 0-d learnable ``eps``."""
+
+    def __init__(self, d_in: int, d_out: int, *, generator: torch.Generator,
+                 device: DeviceLike = None):
+        super().__init__()
+        self.mlp1 = _dense(d_in, d_out, generator, device)
+        self.mlp2 = _dense(d_out, d_out, generator, device)
+        self.eps = _param(torch.zeros(()), device)
+
+
+def gin_apply(layer: GINLayer, ga: torch.Tensor, topo: LocalTopo,
+              activate: bool = True) -> torch.Tensor:
+    msg = edge_gather(ga, topo.src)
+    msg.mul_(topo.edge_mask[:, None])
+    agg = seg_sum(msg, topo.dst, topo.n_dst)
+    del msg
+    x = (1.0 + layer.eps) * edge_gather(ga, topo.dst_self) + agg
+    # the reference's stateless LayerNorm in place of GIN's BatchNorm
+    h = _layernorm(_relu(layer.mlp1(x)))
+    return _out(layer.mlp2(h), activate)
+
+
+# --------------------------------------------------------------------------
+# PNA — mean/max/min/std aggregators × identity/amplification/attenuation
+# --------------------------------------------------------------------------
+
+class PNALayer(nn.Module):
+    """``pre`` on every source row, ``post`` on the 12 scaled aggregates
+    and the vertex's own row, and the 0-d ``log_mean_deg`` (1.0, as the
+    reference initialises it)."""
+
+    def __init__(self, d_in: int, d_out: int, *, generator: torch.Generator,
+                 device: DeviceLike = None):
+        super().__init__()
+        self.pre = _dense(d_in, d_in, generator, device)
+        self.post = _dense(12 * d_in + d_in, d_out, generator, device)
+        self.log_mean_deg = _param(torch.tensor(1.0), device)
+
+
+def pna_apply(layer: PNALayer, ga: torch.Tensor, topo: LocalTopo,
+              activate: bool = True) -> torch.Tensor:
+    mask = topo.edge_mask[:, None]
+    msg = edge_gather(_relu(layer.pre(ga)), topo.src) * mask
+    n = topo.n_dst
+    deg = topo.in_deg[:, None]
+    mean = seg_sum(msg, topo.dst, n) / deg
+    neg = torch.finfo(msg.dtype).min
+    real = mask > 0
+    mx = _maximum(seg_max(torch.where(real, msg, neg), topo.dst, n), -1e30)
+    mn = -_maximum(seg_max(-torch.where(real, msg, -neg), topo.dst, n),
+                   -1e30)
+    sq = seg_sum(msg * msg, topo.dst, n) / deg
+    del msg
+    std = torch.sqrt(_maximum(sq - mean * mean, 0.0) + 1e-5)
+    aggs = torch.cat([mean, mx, mn, std], dim=-1)             # (n, 4d)
+    logd = torch.log(deg + 1.0)
+    amp = logd / layer.log_mean_deg
+    att = layer.log_mean_deg / _maximum(logd, 1e-5)
+    scaled = torch.cat([aggs, aggs * amp, aggs * att], dim=-1)  # (n, 12d)
+    x = torch.cat([scaled, edge_gather(ga, topo.dst_self)], dim=-1)
+    return _out(layer.post(x), activate)
+
+
+# --------------------------------------------------------------------------
+# GraphCast-style processor layer (interaction network, node-centric
+# variant): edge latents are recomputed from endpoint features each layer,
+# as in the reference; residual ``proj`` as in the processor.
+# --------------------------------------------------------------------------
+
+class GraphCastLayer(nn.Module):
+    """Edge MLP ``edge1``/``edge2``, node MLP ``node1``/``node2`` and the
+    residual projection ``proj``."""
+
+    def __init__(self, d_in: int, d_out: int, *, generator: torch.Generator,
+                 device: DeviceLike = None):
+        super().__init__()
+        d = d_out
+        self.edge1 = _dense(2 * d_in, d, generator, device)
+        self.edge2 = _dense(d, d, generator, device)
+        self.node1 = _dense(d_in + d, d, generator, device)
+        self.node2 = _dense(d, d, generator, device)
+        self.proj = _dense(d_in, d, generator, device)
+
+
+def graphcast_apply(layer: GraphCastLayer, ga: torch.Tensor,
+                    topo: LocalTopo, activate: bool = True) -> torch.Tensor:
+    silu = torch.nn.functional.silu
+    x_self = edge_gather(ga, topo.dst_self)
+    e = torch.cat([edge_gather(ga, topo.src),
+                   edge_gather(x_self, topo.dst)], dim=-1)
+    e = silu(layer.edge1(e))
+    # LayerNorm after every MLP, as GraphCast does
+    e = _layernorm(layer.edge2(e)) * topo.edge_mask[:, None]
+    agg = seg_sum(e, topo.dst, topo.n_dst)
+    del e
+    h = silu(layer.node1(torch.cat([x_self, agg], dim=-1)))
+    h = _layernorm(layer.node2(h))
+    h = h + layer.proj(x_self)  # residual
+    return _out(h, activate)
 
 
 # --------------------------------------------------------------------------
@@ -161,9 +504,17 @@ def gcn_apply(layer: GCNLayer, ga: torch.Tensor, topo: LocalTopo,
 
 @dataclasses.dataclass(frozen=True)
 class GNNSpec:
+    """A family's layer class and layer function, and its variants for the
+    dispatcher's ``kernel-fused`` mode (None: the plain ones):
+    ``fused_forward(kd, layer, stack, idx, topo, activate)`` replaces the
+    stacked forward's regather + ``apply_layer``; ``fused_apply(kd)``
+    returns the layer function the stacked forward and backward run."""
+
     name: str
     layer_cls: Callable[..., nn.Module]
     apply_layer: Callable[..., torch.Tensor]
+    fused_forward: Optional[Callable[..., torch.Tensor]] = None
+    fused_apply: Optional[Callable[[Any], Callable[..., torch.Tensor]]] = None
 
     def init(self, generator: torch.Generator, d_in: int, d_hidden: int,
              d_out: int, n_layers: int,
@@ -178,14 +529,20 @@ class GNNSpec:
 
 
 GNN_REGISTRY: Dict[str, GNNSpec] = {
-    "gcn": GNNSpec("gcn", GCNLayer, gcn_apply),
+    "gcn": GNNSpec("gcn", GCNLayer, gcn_apply,
+                   fused_forward=gcn_fused_forward),
+    "sage": GNNSpec("sage", SAGELayer, sage_apply),
+    "gat": GNNSpec("gat", GATLayer, gat_apply, fused_apply=gat_fused_apply),
+    "gin": GNNSpec("gin", GINLayer, gin_apply),
+    "pna": GNNSpec("pna", PNALayer, pna_apply),
+    "graphcast": GNNSpec("graphcast", GraphCastLayer, graphcast_apply),
 }
 
 
 def get_gnn(name: str) -> GNNSpec:
     if name not in GNN_REGISTRY:
         raise KeyError(
-            f"GNN model {name!r} is not ported yet (ported: "
+            f"GNN model {name!r} is not ported (ported: "
             f"{sorted(GNN_REGISTRY)})"
         )
     return GNN_REGISTRY[name]

@@ -1,72 +1,161 @@
 """Weight converters between the reference (JAX) parameter pytrees and the
-port's layers, both ways.
+port's layers, both ways, for the six GNN families.
 
 The tests use them to hand both packages the same weights and to compare
 gradients and trained weights; ``chip_smoke.py`` never imports JAX and
 initialises from a seeded ``torch.Generator`` instead. The reference side is
 plain numpy dictionaries (``np.asarray`` of the reference params), so this
 module needs nothing of JAX.
+
+A dense sub-layer ``{"w": (d_in, d_out), "b": (d_out,)}`` is an
+``nn.Linear`` with ``weight = w.T`` and ``bias = b``; any other leaf (GAT's
+``w``/``a_src``/``a_dst``/``b``, GIN's 0-d ``eps``, PNA's 0-d
+``log_mean_deg``) is a parameter of the same shape. :data:`LAYOUT` maps each
+family's reference keys to the port's attribute names (the reference's
+``self`` is the port's ``lin_self``). A layer's family is recognised from
+its key set, or named with ``model=``.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.gnn.layers import GCNLayer
+from repro_torch.models.gnn.layers import GNN_REGISTRY
+
+# family -> ((reference key, port attribute, dense?), ...), in the port
+# layer's parameter order
+LAYOUT: Dict[str, Tuple[Tuple[str, str, bool], ...]] = {
+    "gcn": (("lin", "lin", True),),
+    "sage": (("self", "lin_self", True), ("nbr", "nbr", True)),
+    "gat": (("w", "w", False), ("a_src", "a_src", False),
+            ("a_dst", "a_dst", False), ("b", "b", False)),
+    "gin": (("mlp1", "mlp1", True), ("mlp2", "mlp2", True),
+            ("eps", "eps", False)),
+    "pna": (("pre", "pre", True), ("post", "post", True),
+            ("log_mean_deg", "log_mean_deg", False)),
+    "graphcast": tuple((k, k, True) for k in
+                       ("edge1", "edge2", "node1", "node2", "proj")),
+}
 
 
-def params_from_jax(params: List[Dict], device: DeviceLike = None) -> nn.ModuleList:
-    """``[{"lin": {"w": (d_in, d_out), "b": (d_out,)}}, ...]`` -> GCN layers
-    with ``lin.weight = w.T`` and ``lin.bias = b``, on ``device``."""
+def _grad_keys(model: str) -> frozenset:
+    keys = set()
+    for _, attr, dense in LAYOUT[model]:
+        keys |= {f"{attr}.weight", f"{attr}.bias"} if dense else {attr}
+    return frozenset(keys)
+
+
+_BY_KEYS = {frozenset(k for k, _, _ in v): m for m, v in LAYOUT.items()}
+_BY_GRAD_KEYS = {_grad_keys(m): m for m in LAYOUT}
+
+
+def _family(keys, table, i: int, what: str, model: Optional[str]) -> str:
+    keys = frozenset(keys)
+    if model is not None:
+        if model not in LAYOUT:
+            raise ValueError(f"unknown GNN family {model!r} "
+                             f"(one of {sorted(LAYOUT)})")
+        want = next(k for k, m in table.items() if m == model)
+        if keys != want:
+            raise ValueError(f"layer {i}: {model} {what} have keys "
+                             f"{sorted(want)}; got {sorted(keys)}")
+        return model
+    if keys not in table:
+        raise ValueError(f"layer {i}: {what} keys {sorted(keys)} match no "
+                         f"GNN family ({sorted(LAYOUT)})")
+    return table[keys]
+
+
+def _dense_np(p, i: int, key: str) -> Tuple[np.ndarray, np.ndarray]:
+    w = np.array(p["w"], np.float32)
+    b = np.array(p["b"], np.float32)
+    if w.ndim != 2 or b.shape != (w.shape[1],):
+        raise ValueError(
+            f"layer {i} {key!r}: w {w.shape} and b {b.shape} do not form a "
+            "(d_in, d_out) dense layer"
+        )
+    return w, b
+
+
+def _dims(model: str, p: Dict) -> Tuple[int, int, dict]:
+    """``(d_in, d_out, extra constructor kwargs)`` of a reference layer."""
+    if model == "gat":
+        d_in, n_heads, d_head = np.shape(p["w"])
+        return d_in, n_heads * d_head, {"n_heads": n_heads}
+    first = {"gcn": "lin", "sage": "self", "gin": "mlp1", "pna": "post",
+             "graphcast": "proj"}[model]
+    d_in, d_out = np.shape(p[first]["w"])
+    if model == "pna":
+        d_in = np.shape(p["pre"]["w"])[0]
+    return d_in, d_out, {}
+
+
+def params_from_jax(params: List[Dict], device: DeviceLike = None,
+                    model: Optional[str] = None) -> nn.ModuleList:
+    """Reference per-layer parameter dicts -> the port's layers on
+    ``device``, each family recognised from its key set (or ``model``)."""
     device = resolve_device(device)
     layers = []
     for i, p in enumerate(params):
-        if set(p) != {"lin"}:
-            raise ValueError(
-                f"layer {i}: only GCN params ({{'lin': {{'w', 'b'}}}}) are "
-                f"ported; got keys {sorted(p)}"
-            )
-        w = np.array(p["lin"]["w"], np.float32)
-        b = np.array(p["lin"]["b"], np.float32)
-        if w.ndim != 2 or b.shape != (w.shape[1],):
-            raise ValueError(
-                f"layer {i}: w {w.shape} and b {b.shape} do not form a "
-                "(d_in, d_out) dense layer"
-            )
-        layer = GCNLayer(w.shape[0], w.shape[1], device=device,
-                         generator=torch.Generator().manual_seed(0))
+        fam = _family(p, _BY_KEYS, i, "params", model)
+        d_in, d_out, kw = _dims(fam, p)
+        layer = GNN_REGISTRY[fam].layer_cls(
+            d_in, d_out, device=device,
+            generator=torch.Generator().manual_seed(0), **kw)
         with torch.no_grad():
-            layer.lin.weight.copy_(torch.from_numpy(w.T.copy()))
-            layer.lin.bias.copy_(torch.from_numpy(b))
+            for key, attr, dense in LAYOUT[fam]:
+                dst = getattr(layer, attr)
+                if dense:
+                    w, b = _dense_np(p[key], i, key)
+                    pairs = ((dst.weight, w.T), (dst.bias, b))
+                else:
+                    pairs = ((dst, np.array(p[key], np.float32)),)
+                for t, a in pairs:
+                    if tuple(t.shape) != a.shape:
+                        raise ValueError(
+                            f"layer {i} {key!r}: shape {a.shape} does not "
+                            f"fit the {fam} layer's {tuple(t.shape)}")
+                    t.copy_(torch.from_numpy(np.array(a, order="C")))
         layers.append(layer)
     return nn.ModuleList(layers)
 
 
-def _lin_to_jax(weight: torch.Tensor, bias: torch.Tensor) -> Dict:
-    w = weight.detach().cpu().numpy()
-    return {"lin": {"w": np.ascontiguousarray(w.T),
-                    "b": bias.detach().cpu().numpy().copy()}}
+def _to_np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
 
 
-def params_to_numpy(params) -> List[Dict]:
-    """GCN layers -> ``[{"lin": {"w": (d_in, d_out), "b": (d_out,)}}, ...]``
-    numpy, the reference's layout (the inverse of :func:`params_from_jax`)."""
-    return [_lin_to_jax(layer.lin.weight, layer.lin.bias) for layer in params]
+def _to_jax(model: str, get) -> Dict:
+    out = {}
+    for key, attr, dense in LAYOUT[model]:
+        if dense:
+            out[key] = {"w": np.ascontiguousarray(_to_np(get(f"{attr}.weight")).T),
+                        "b": _to_np(get(f"{attr}.bias"))}
+        else:
+            out[key] = _to_np(get(attr))
+    return out
 
 
-def grads_to_jax(grads: List[Dict[str, torch.Tensor]]) -> List[Dict]:
-    """The engine's per-layer ``{"lin.weight", "lin.bias"}`` gradients ->
-    the reference's ``[{"lin": {"w", "b"}}, ...]`` numpy layout."""
+def params_to_numpy(params, model: Optional[str] = None) -> List[Dict]:
+    """The port's layers -> the reference's per-layer numpy dicts (the
+    inverse of :func:`params_from_jax`)."""
+    out = []
+    for i, layer in enumerate(params):
+        named = dict(layer.named_parameters())
+        fam = _family(named, _BY_GRAD_KEYS, i, "parameters", model)
+        out.append(_to_jax(fam, named.__getitem__))
+    return out
+
+
+def grads_to_jax(grads: List[Dict[str, torch.Tensor]],
+                 model: Optional[str] = None) -> List[Dict]:
+    """The engine's per-layer ``{param_name: tensor}`` gradients -> the
+    reference's per-layer numpy layout."""
     out = []
     for i, g in enumerate(grads):
-        if set(g) != {"lin.weight", "lin.bias"}:
-            raise ValueError(
-                f"layer {i}: only GCN grads ('lin.weight', 'lin.bias') are "
-                f"ported; got keys {sorted(g)}"
-            )
-        out.append(_lin_to_jax(g["lin.weight"], g["lin.bias"]))
+        fam = _family(g, _BY_GRAD_KEYS, i, "grads", model)
+        out.append(_to_jax(fam, g.__getitem__))
     return out

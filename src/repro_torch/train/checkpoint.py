@@ -156,7 +156,9 @@ def _like(arr: np.ndarray, tpl):
     """``arr`` as the template leaf's kind: a tensor on the template's
     device in its dtype, an ndarray in its dtype, or a Python number."""
     if isinstance(tpl, torch.Tensor):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+        # np.array keeps a 0-d leaf (GIN's eps, PNA's log_mean_deg) 0-d;
+        # np.ascontiguousarray would make it (1,)
+        return torch.from_numpy(np.array(arr, order="C")).to(
             device=tpl.device, dtype=tpl.dtype)
     if isinstance(tpl, np.ndarray):
         return arr.astype(tpl.dtype)

@@ -1,4 +1,5 @@
-"""The CUDA gather kernels on the card, against the numpy oracles.
+"""The CUDA kernels (gather/scatter, edge softmax) on the card, against the
+numpy oracles.
 
 Marked ``cuda``: they skip where there is no CUDA device (the kernels have
 no CPU mode; the CPU tests cover the plain versions). This file imports
@@ -10,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.edge_softmax import ops as es_ops
+from repro_torch.kernels.edge_softmax import ref as es_ref
 from repro_torch.kernels.gather_scatter import ops, ref
 
 
@@ -118,3 +121,77 @@ def test_cuda_scatter_add_refuses_bad_inputs(cuda_dev):
         ops.scatter_add_(b, rows.cpu(), torch.zeros(2, 4, device=cuda_dev))
     with pytest.raises(ValueError, match="contiguous"):
         ops.scatter_add_(b.t(), rows, torch.zeros(2, 4, device=cuda_dev))
+
+
+def _softmax_inputs(rng, n, E, H, hub=0):
+    """Sorted dst into ``n`` rows with rows 0, 1 and a middle row empty, and
+    ``hub`` extra edges into one row (a power-law hub)."""
+    dst = rng.integers(2, n, E)
+    dst = dst[dst != n // 2]
+    dst = np.sort(np.concatenate([dst, np.full(hub, n - 3)])).astype(np.int32)
+    scores = rng.standard_normal((dst.size, H), dtype=np.float32)
+    return scores, dst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,E,H,hub", [
+    (200, 1500, 1, 0), (300, 2500, 4, 0), (128, 600, 8, 0),
+    (1000, 20000, 4, 9000), (5, 3, 2, 0),
+])
+def test_cuda_edge_softmax_within_bound_of_oracle(cuda_dev, n, E, H, hub,
+                                                  rng):
+    """Per element within ``(deg + 4 + |s - m|) * 2^-23`` relative of the
+    float64 oracle: ``deg`` roundings in the row's sum, two ulp of
+    ``expf``, the divide; the float32 ``s - m`` rounds by ``|s - m| * 2^-24``
+    absolute, which ``exp`` turns into that much relative error. Bitwise on
+    a rerun."""
+    scores, dst = _softmax_inputs(rng, n, E, H, hub)
+    before = es_ops.LAUNCHES["edge_softmax"]
+    s_d, d_d = _on(cuda_dev, scores, dst)
+    got = es_ops.edge_softmax(s_d, d_d, n)
+    again = es_ops.edge_softmax(s_d, d_d, n)
+    torch.cuda.synchronize()
+    assert es_ops.LAUNCHES["edge_softmax"] == before + 2
+    assert torch.equal(got, again)
+    want = es_ref.edge_softmax_np(scores, dst, n)
+    deg = np.bincount(dst, minlength=n)[dst][:, None]
+    smax = np.full((n, H), -np.inf)
+    np.maximum.at(smax, dst, scores.astype(np.float64))
+    spread = np.abs(scores - smax[dst])
+    tol = (deg + 4 + spread) * 2.0 ** -23 * np.abs(want)
+    err = np.abs(got.cpu().numpy().astype(np.float64) - want)
+    assert np.all(err <= tol), float((err / np.maximum(tol, 1e-45)).max())
+    plain = es_ref.edge_softmax_ref(s_d, d_d, n)
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_edge_softmax_autograd_matches_plain_backward(cuda_dev, rng):
+    scores, dst = _softmax_inputs(rng, 300, 2500, 4)
+    d_attn = rng.standard_normal(scores.shape, dtype=np.float32)
+    s_d, d_d, g_d = _on(cuda_dev, scores, dst, d_attn)
+    s_d.requires_grad_(True)
+    attn = es_ops.EdgeSoftmax.apply(s_d, d_d, 300)
+    (got,) = torch.autograd.grad(attn, s_d, g_d)
+    s_c = torch.from_numpy(scores).requires_grad_(True)
+    attn_c = es_ref.edge_softmax_ref(s_c, torch.from_numpy(dst), 300)
+    (want,) = torch.autograd.grad(attn_c, s_c, torch.from_numpy(d_attn))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_edge_softmax_refuses_bad_inputs(cuda_dev):
+    s = torch.zeros(6, 2, device=cuda_dev)
+    d = torch.zeros(6, dtype=torch.int32, device=cuda_dev)
+    before = es_ops.LAUNCHES["edge_softmax"]
+    with pytest.raises(TypeError):
+        es_ops.edge_softmax(s.double(), d, 3)
+    with pytest.raises(TypeError):
+        es_ops.edge_softmax(s, d.long(), 3)
+    with pytest.raises(ValueError, match="expected"):
+        es_ops.edge_softmax(s, d.cpu(), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        es_ops.edge_softmax(torch.zeros(2, 6, device=cuda_dev).t(), d, 3)
+    with pytest.raises(ValueError, match="n_dst=0"):
+        es_ops.edge_softmax(s, d, 0)
+    assert es_ops.LAUNCHES["edge_softmax"] == before

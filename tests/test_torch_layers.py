@@ -104,8 +104,8 @@ def test_params_from_jax_layout_and_validation():
     (layer,) = params_from_jax([{"lin": {"w": w, "b": b}}], device="cpu")
     np.testing.assert_array_equal(layer.lin.weight.detach().numpy(), w.T)
     np.testing.assert_array_equal(layer.lin.bias.detach().numpy(), b)
-    with pytest.raises(ValueError, match="only GCN"):
-        params_from_jax([{"self": {}, "nbr": {}}], device="cpu")
+    with pytest.raises(ValueError, match="match no GNN family"):
+        params_from_jax([{"lin": {"w": w, "b": b}, "nbr": {}}], device="cpu")
     with pytest.raises(ValueError, match="dense layer"):
         params_from_jax([{"lin": {"w": w, "b": b[:3]}}], device="cpu")
 
@@ -124,7 +124,7 @@ def test_spec_init_is_seeded_and_shaped():
                     device="cpu")[0].lin.weight.detach()
     assert abs(float(big.std()) * np.sqrt(400) - 1.0) < 0.02
     with pytest.raises(KeyError, match="not ported"):
-        tl.get_gnn("gat")
+        tl.get_gnn("gcnx")
 
 
 def test_local_topo_to_moves_every_tensor():

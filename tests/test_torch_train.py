@@ -307,16 +307,36 @@ def test_train_smoke_passes_all_checks(kernels, mode):
         assert run["counters"].host_scatter_bytes > 0
 
 
+def test_dense_check_counts_kink_flips_past_its_tolerance(monkeypatch):
+    """Past ``DENSE_GRAD_TOL`` the dense check counts the kinks whose branch
+    a float32 forward of the oracle gets the other way; ``dense_ok`` then
+    reads the float64 oracle on the float32 branches, where there are any
+    (none at this size)."""
+    monkeypatch.setattr(launch_train, "DENSE_GRAD_TOL", 0.0)
+    r = launch_train._train_smoke("gat", 0, n_nodes=400, device="cpu")
+    assert r["dense_grad_rel_err"] > 0.0
+    assert r["kink_flips"] == 0
+    assert "dense_grad_rel_err_f32_branches" not in r
+    assert not launch_train.dense_ok(r)
+    monkeypatch.undo()
+    assert launch_train.dense_ok(r)
+    assert not launch_train.dense_ok(dict(r, dense_loss_rel_err=2e-4))
+    assert launch_train.dense_ok(dict(
+        r, dense_grad_rel_err=3e-3, kink_flips=1,
+        dense_grad_rel_err_f32_branches=1e-6))
+    assert not launch_train.dense_ok(dict(r, dense_grad_rel_err=3e-3))
+
+
 def test_launcher_exit_codes(monkeypatch, capsys):
     for argv in (["--arch", "mixtral-8x7b", "--offload"],
-                 ["--arch", "pna", "--offload"],
+                 ["--arch", "pna"],
                  ["--arch", "gcn-cora"]):
         with pytest.raises(SystemExit) as ei:
             launch_train.main(argv)
         assert ei.value.code == 2
     out = capsys.readouterr().out
-    assert "requires a GNN arch" in out and "not ported yet" in out
-    assert "only --offload" in out
+    assert "requires a GNN arch" in out
+    assert "pna: only --offload" in out and "gcn-cora: only --offload" in out
     # the real smoke, on the CPU (the launcher itself runs on the card)
     real = launch_train._train_smoke
     monkeypatch.setattr(launch_train, "_train_smoke",
