@@ -22,7 +22,12 @@ source, all started together), then:
   Prints kernel, plain, bound and library (``index_select`` / CSR
   ``torch.sparse.mm`` / ``index_add_`` / COO ``torch.sparse.softmax``,
   the last checked against the plain version too) times; the port never
-  calls the library ops.
+  calls the library ops. ``embedding_bag`` bitwise against its plain
+  version (and within 1e-5 of a float64 sum) at small shapes with odd
+  widths and NaN / wrapped ids, then at phase H's ``serve_bulk`` user-tower
+  shape (table 10,000,000 x 256, ids (2,097,152, 16) uniform from numpy
+  seed 0) in sum and mean, with kernel, plain, bound and
+  ``F.embedding_bag(mode="mean")`` times.
 - Phase B: the port's ``launch.infer`` default smoke on the card (2000
   nodes, dims [24, 32, 8]): finite, pipelined == serial, served == dense;
   then the ``launch.train`` and ``launch.infer`` default smokes of each of
@@ -67,6 +72,29 @@ source, all started together), then:
   and gradients, pipelined == serial bitwise, and exact launch counts:
   ``gather_rows`` once per (run, pass, layer, unit) and phase D's
   ``scatter_add`` count.
+- Phase H, two-tower retrieval (``two_tower_retrieval`` ``CONFIG``: embed
+  256, towers 1024-512-256, 8 user and 4 item fields, bags of 16), weights
+  from ``torch.Generator`` seed 0 on the card. Serving at the published
+  10,000,000 rows per table (20.5 GB of tables): ``serve_p99`` (batch 512,
+  50 queries after 5 of warm-up, p50 / p99), ``serve_bulk`` (batch 262,144,
+  wall and lookups/s), ``retrieval_cand`` (a 1,000,000-candidate corpus
+  through the item tower in chunks of 65,536, then 30 batch-1 top-128
+  queries after 2 of warm-up, p50 / p99). Checks finite outputs, unit L2
+  norms within 1e-5, top-1 == argmax of the full score row, kernel ==
+  reference bitwise on a ``serve_p99`` batch, and exact ``embedding_bag``
+  launch counts. Training at the published widths with 2,000,000 rows per
+  table and batch 16,384 (cuts: 10 M rows would need 82 GB for weights,
+  gradients and AdamW's moments; the in-batch logits are 17 GB each at
+  ``train_batch``'s 65,536): kernel == reference bitwise on the first
+  step's loss and every gradient, then 20 steps of ``train_two_tower``'s
+  ``batch_fn`` through ``run_training_loop``: finite, the loss falls, two
+  ``embedding_bag`` and two ``scatter_add`` launches per step; then the
+  example's own size (250,000 rows, batch 1,024, bags of 8): 10 steps, a
+  restore from the step-10 checkpoint and 10 more, bitwise equal to 20
+  straight steps. Prints latencies, walls, lookups/s, achieved TFLOP/s
+  (``recsys_model_flops``), peak device GB, one step's gradient and AdamW
+  times apart, and ``scatter_add`` bitwise vs plain with times at the user
+  table gradient's shape.
 - Phase E, small: the same widths on a 20,000-node graph, where a dense
   whole-graph autograd oracle fits (float64, on the card): for GCN and
   GAT, each mode's loss within 1e-4 and gradients within 5e-4 of it (where
@@ -84,6 +112,7 @@ JSON device record; the line before it the per-kernel JSON record.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -100,14 +129,17 @@ SOURCE = {
     "gather_aggregate": GS_SOURCE,
     "scatter_add": GS_SOURCE,
     "edge_softmax": "src/repro_torch/kernels/edge_softmax/csrc/edge_softmax.cu",
+    "embedding_bag":
+        "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
 }
 REPLACES = {
     "gather_rows": "src/repro/kernels/gather_scatter/gather_scatter.py:50",
     "gather_aggregate": "src/repro/kernels/gather_scatter/gather_scatter.py:91",
     "scatter_add": "src/repro/kernels/gather_scatter/gather_scatter.py:141",
     "edge_softmax": "src/repro/kernels/edge_softmax/edge_softmax.py:40",
+    "embedding_bag": "src/repro/kernels/embedding_bag/embedding_bag.py:33",
 }
-KERNEL_PACKAGES = ("gather_scatter", "edge_softmax")
+KERNEL_PACKAGES = ("gather_scatter", "edge_softmax", "embedding_bag")
 NO_LAUNCHES = {k: 0 for k in REPLACES}
 NEW_FAMILIES = ("sage", "gat", "gin", "pna", "graphcast")
 GAT_HEADS = 4                  # GAT's hidden layers (gat_init's default)
@@ -127,6 +159,13 @@ C_CACHE_MB = 128
 E_NODES = 20000
 E_PARTS = 8
 E_CACHE_MB = 64
+# phase H: two-tower training cuts (rows per table, batch) and the
+# example's own size for the checkpoint resume
+H_TRAIN_VOCAB = 2_000_000
+H_TRAIN_BATCH = 16384
+H_TRAIN_STEPS = 20
+H_RESUME_VOCAB = 250_000
+H_RESUME_BATCH = 1024
 
 
 def check(cond, what: str) -> None:
@@ -323,6 +362,7 @@ def phase_a(plan, d_in: int, dev):
     del stack
     results["scatter_add"] = phase_a_scatter(plan, DIMS[1], dev)
     results["edge_softmax"] = phase_a_softmax(u, dev)
+    results["embedding_bag"] = phase_a_bag(dev)
     for name, r in results.items():
         lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
                else "none")
@@ -465,6 +505,100 @@ def phase_a_softmax(u, dev) -> dict:
         library_ms=time_ms(lambda: torch.sparse.softmax(A, 2)),
     )
     del k, p, err, tol, scores, A
+    return out
+
+
+def nan_equal(a, b) -> bool:
+    """Equal values, NaN where the other is NaN (the card's NaN has its
+    own bits, so this is bitwise up to the NaN payload)."""
+    import torch
+
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def phase_a_bag(dev) -> dict:
+    """``embedding_bag`` bitwise vs its plain version at small shapes (odd
+    widths, duplicates, wrapped and NaN ids; within 1e-5 of a float64 sum
+    where every id is valid), then at phase H's ``serve_bulk`` user-tower
+    shape in sum and mean, with times (mean mode, the towers' mode)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.configs.two_tower_retrieval import CONFIG
+    from repro_torch.kernels.embedding_bag import ops, ref
+
+    rng = np.random.default_rng(0)
+    for (V, D, nb, bs, bad) in [(1000, 7, 333, 5, False),
+                                (5000, 256, 1000, 16, False),
+                                (300, 33, 64, 40, False),
+                                (50, 16, 40, 3, True), (80, 5, 30, 4, True)]:
+        table = rng.standard_normal((V, D), dtype=np.float32)
+        ids = rng.integers(0, V, (nb, bs)).astype(np.int32)
+        ids[::3, -1] = ids[::3, 0]                     # duplicates in a bag
+        if bad:                                        # wrapped and NaN ids
+            ids[1, 0], ids[4, 1], ids[7, 0], ids[9, 2] = -1, V, -V, -V - 1
+        t_d, i_d = (torch.from_numpy(a).to(dev) for a in (table, ids))
+        for mode in ("sum", "mean"):
+            got = ops.embedding_bag(t_d, i_d, mode)
+            plain = ref.embedding_bag_ref(t_d, i_d, mode)
+            torch.cuda.synchronize()
+            if bad:
+                nan_rows = torch.isnan(got).all(1).nonzero()[:, 0].tolist()
+                check(nan_equal(got, plain) and nan_rows == [4, 9],
+                      f"embedding_bag {mode} == plain with NaN where plain "
+                      f"is NaN, bags 4 and 9 NaN (V={V} D={D} n_bags={nb} "
+                      f"bag={bs}, ids -1, V, -V, -V-1)")
+                continue
+            want = table[ids].sum(1, dtype=np.float64) / (
+                bs if mode == "mean" else 1)
+            check(torch.equal(got, plain) and np.allclose(
+                got.cpu().numpy(), want, rtol=1e-5, atol=1e-5),
+                f"embedding_bag {mode} bitwise vs plain, within 1e-5 of the "
+                f"float64 sum (V={V} D={D} n_bags={nb} bag={bs})")
+
+    # the main path's shape: serve_bulk's user tower at the published vocab
+    V, D, bag = CONFIG.user_vocab, CONFIG.embed_dim, CONFIG.bag_size
+    n_bags = RECSYS_SHAPES["serve_bulk"]["batch"] * CONFIG.n_user_fields
+    gen = torch.Generator(device=dev).manual_seed(0)
+    table = torch.randn((V, D), generator=gen, device=dev)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, V, (n_bags, bag)).astype(np.int32)).to(dev)
+    for mode in ("sum", "mean"):
+        k = ops.embedding_bag(table, ids, mode)
+        p = ref.embedding_bag_ref(table, ids, mode)
+        torch.cuda.synchronize()
+        check(torch.equal(k, p), f"embedding_bag {mode} bitwise vs plain at "
+              f"table {tuple(table.shape)}, ids {tuple(ids.shape)}")
+    err = float((k - p).abs().max())      # mean mode, the one timed below
+    del p
+    check(torch.equal(ops.embedding_bag(table, ids, "mean"), k),
+          "embedding_bag deterministic (rerun bitwise)")
+    n_ids = n_bags * bag
+    uniq = int(torch.unique(ids).numel())
+    # each distinct row read once, the ids read once, the output written
+    # once; one add per looked-up element
+    b_ms, b_by = bound(uniq * D * 4 + 4 * n_ids + n_bags * D * 4,
+                       float(n_ids * D))
+    lookup_ms, _ = bound(n_ids * D * 4 + 4 * n_ids + n_bags * D * 4, 0.0)
+    ids64 = ids.long()           # the library's index type, made untimed
+    lib = F.embedding_bag(ids64, table, mode="mean")
+    print(f"  embedding_bag: {uniq} distinct rows of {n_ids} lookups; bound "
+          f"with one row read per lookup {lookup_ms:.4f} ms; library "
+          f"F.embedding_bag max abs diff from plain "
+          f"{float((lib - k).abs().max()):.3e}", flush=True)
+    del lib
+    out = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: ops.embedding_bag(table, ids, "mean")),
+        plain_ms=time_ms(lambda: ref.embedding_bag_ref(table, ids, "mean")),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.embedding_bag(ids64, table,
+                                                   mode="mean")),
+    )
+    del k, table, ids, ids64
+    torch.cuda.empty_cache()
     return out
 
 
@@ -737,6 +871,294 @@ def phase_g(plan, dev):
     return launches
 
 
+# ----------------------------------------------------------------- phase H
+def unit_norms(e, tol: float = 1e-5) -> bool:
+    import torch
+
+    return bool(torch.isfinite(e).all()) and bool(
+        ((torch.linalg.vector_norm(e, dim=-1) - 1).abs() <= tol).all())
+
+
+def pct(lat_s, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(lat_s) * 1e3, q))
+
+
+def phase_h_serving(dev):
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import RECSYS_SHAPES, recsys_model_flops
+    from repro_torch.configs.two_tower_retrieval import CONFIG as cfg
+    from repro_torch.examples.serve_retrieval import (
+        BULK, build_corpus, query_latencies,
+    )
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.recsys.two_tower import (
+        init_two_tower, score_candidates, serve_user_tower,
+    )
+
+    print(f"phase H: two-tower serving at {cfg.name} widths, "
+          f"{cfg.user_vocab} + {cfg.item_vocab} table rows", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_two_tower(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * 4 for p in model.parameters())
+    print(f"  model: {n_bytes / 1e9:.2f} GB of weights, made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(1)
+
+    def users(b):
+        return torch.from_numpy(rng.integers(
+            0, cfg.user_vocab, (b, cfg.n_user_fields, cfg.bag_size)
+        ).astype(np.int32)).to(dev)
+
+    # a comparison, outside the counted run: kernel == reference bitwise
+    u = users(RECSYS_SHAPES["serve_p99"]["batch"])
+    k = serve_user_tower(model, u, cfg, "kernel")
+    r = serve_user_tower(model, u, cfg, "reference")
+    check(torch.equal(k, r), f"serve_p99 batch: kernel == reference "
+          f"(bitwise, {tuple(k.shape)})")
+    del k, r
+
+    reset_launches()          # this path's launches start here
+    bags = 0
+    # serve_p99: ids on the card before the clock, each call synchronised
+    B, warm, n_q = RECSYS_SHAPES["serve_p99"]["batch"], 5, 50
+    lat = []
+    for _ in range(warm + n_q):
+        u = users(B)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e = serve_user_tower(model, u, cfg)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    bags += warm + n_q
+    check(unit_norms(e), f"serve_p99: finite, unit norms within 1e-5 "
+          f"({tuple(e.shape)})")
+    p99_p50, p99_p99 = pct(lat[warm:], 50), pct(lat[warm:], 99)
+    print(f"  serve_p99 (batch {B}, {n_q} queries): p50 {p99_p50:.4f} ms, "
+          f"p99 {p99_p99:.4f} ms", flush=True)
+
+    # serve_bulk
+    B = RECSYS_SHAPES["serve_bulk"]["batch"]
+    u = users(B)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e = serve_user_tower(model, u, cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    bags += 3
+    check(unit_norms(e), f"serve_bulk: finite, unit norms within 1e-5 "
+          f"({tuple(e.shape)})")
+    wall = min(walls)
+    lookups = B * cfg.n_user_fields * cfg.bag_size
+    print(f"  serve_bulk (batch {B}): walls "
+          f"{', '.join(f'{w * 1e3:.3f}' for w in walls)} ms; "
+          f"{lookups / wall:.4e} lookups/s, "
+          f"{recsys_model_flops(cfg, 'serve', B) / wall / 1e12:.2f} TFLOP/s "
+          f"(best)", flush=True)
+    del u, e
+
+    # retrieval_cand: the corpus through the item tower in bulk chunks
+    n_cand = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    corpus = build_corpus(model, cfg, n_cand, np.random.default_rng(2), dev,
+                          bulk=BULK)
+    torch.cuda.synchronize()
+    t_corpus = time.perf_counter() - t0
+    bags += math.ceil(n_cand / BULK)
+    check(unit_norms(corpus), f"corpus: finite, unit norms within 1e-5 "
+          f"({tuple(corpus.shape)}, built in {t_corpus:.3f} s)")
+    warm, n_q = 2, 30
+    lat, vals, idx = query_latencies(model, cfg, corpus, rng, dev,
+                                     n_queries=warm + n_q, batch=1,
+                                     top_k=128)
+    bags += warm + n_q
+    u = users(1)
+    vals, idx = score_candidates(model, u, corpus, cfg, top_k=128)
+    full = serve_user_tower(model, u, cfg) @ corpus.T
+    bags += 2
+    check(bool(torch.isfinite(vals).all()) and int(idx[0, 0]) == int(
+        full.argmax()) and bool((vals[0, 1:] <= vals[0, :-1]).all()),
+        "retrieval_cand: top-1 == argmax of the full score row, top-128 "
+        "sorted descending, finite")
+    print(f"  retrieval_cand ({n_cand} candidates, batch 1, top-128, {n_q} "
+          f"queries): p50 {pct(lat[warm:], 50):.4f} ms, p99 "
+          f"{pct(lat[warm:], 99):.4f} ms; corpus built in "
+          f"{t_corpus * 1e3:.1f} ms; peak device "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    counts = launch_counts()
+    check(counts == dict(NO_LAUNCHES, embedding_bag=bags),
+          f"serving launches {counts} == {bags} embedding_bag (one per "
+          f"tower call)")
+    del model, corpus, full
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_h_training(dev):
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.base import recsys_model_flops
+    from repro_torch.configs.two_tower_retrieval import CONFIG
+    from repro_torch.examples.train_two_tower import (
+        make_batch_fn, make_config, make_step_fn,
+    )
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.recsys.two_tower import (
+        init_two_tower, two_tower_value_and_grad,
+    )
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.train import LoopConfig, run_training_loop
+
+    cfg = dataclasses.replace(CONFIG, user_vocab=H_TRAIN_VOCAB,
+                              item_vocab=H_TRAIN_VOCAB)
+    B = H_TRAIN_BATCH
+    print(f"phase H: two-tower training at {cfg.name} widths, "
+          f"{H_TRAIN_VOCAB} rows per table, batch {B}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    model = init_two_tower(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    batch_fn = make_batch_fn(cfg, B, H_TRAIN_VOCAB, dev)
+
+    # a comparison, outside the counted run: the first step's loss and
+    # every gradient, kernel == reference
+    u, i = batch_fn(0)
+    (lk, _), gk = two_tower_value_and_grad(model, u, i, cfg, "kernel")
+    (lr_, _), gr = two_tower_value_and_grad(model, u, i, cfg, "reference")
+    check(torch.equal(lk, lr_) and all(torch.equal(gk[n], gr[n]) for n in gk),
+          f"step 0: kernel == reference (loss {float(lk)!r} and "
+          f"{len(gk)} gradients, bitwise)")
+    del gk, gr, u, i
+
+    step_fn = make_step_fn(cfg)
+    walls = []
+
+    def timed_step(p, o, batch):
+        t0 = time.perf_counter()
+        out = step_fn(p, o, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    log = lambda m: print(f"    {m}", flush=True)
+    reset_launches()          # this path's launches start here
+    params, opt, state = run_training_loop(
+        LoopConfig(total_steps=H_TRAIN_STEPS, log_every=5), model,
+        adamw_init(model), timed_step, batch_fn, log_fn=log)
+    counts = launch_counts()
+    losses = state.losses
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{H_TRAIN_STEPS} steps: losses finite and falling "
+          f"({losses[0]!r} -> {losses[-1]!r})")
+    per_step = 2 * H_TRAIN_STEPS
+    check(counts == dict(NO_LAUNCHES, embedding_bag=per_step,
+                         scatter_add=per_step),
+          f"training launches {counts}: 2 embedding_bag and 2 scatter_add "
+          f"per step")
+    steady = sorted(walls[1:])[len(walls[1:]) // 2]
+    print(f"  step walls ms: {', '.join(f'{w * 1e3:.1f}' for w in walls)}; "
+          f"median after the first {steady * 1e3:.3f} ms, "
+          f"{recsys_model_flops(cfg, 'train', B) / steady / 1e12:.2f} "
+          f"TFLOP/s; peak device "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    # where a step's time goes: one more step, its gradients and its
+    # AdamW update timed apart (after the counted run)
+    u, i = batch_fn(H_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, grads = two_tower_value_and_grad(params, u, i, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw_update(grads, params, opt, lr=1e-3)
+    torch.cuda.synchronize()
+    print(f"  one more step: loss and gradients {(t1 - t0) * 1e3:.3f} ms, "
+          f"AdamW {(time.perf_counter() - t1) * 1e3:.3f} ms", flush=True)
+    del model, params, opt, state, grads, i
+    torch.cuda.empty_cache()
+    phase_h_scatter(u, cfg, dev)
+    del u
+
+    # checkpoint resume at the example's own size
+    ecfg = make_config(H_RESUME_VOCAB)
+    ebatch = make_batch_fn(ecfg, H_RESUME_BATCH, H_RESUME_VOCAB, dev)
+    estep = make_step_fn(ecfg)
+
+    def loop(ckpt, steps):
+        p = init_two_tower(ecfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+        return run_training_loop(
+            LoopConfig(total_steps=steps, ckpt_dir=ckpt, ckpt_every=10,
+                       log_every=10), p, adamw_init(p), estep, ebatch,
+            log_fn=log)
+
+    reset_launches()
+    ref_p, _, ref_s = loop(None, 20)
+    ckpt = tempfile.mkdtemp()
+    try:
+        loop(ckpt, 10)
+        got_p, _, got_s = loop(ckpt, 20)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    resume_counts = launch_counts()
+    check(got_s.losses == ref_s.losses[10:] and all(
+        torch.equal(a, b) for a, b in zip(got_p.parameters(),
+                                          ref_p.parameters())),
+          f"resumed at step 10 ({H_RESUME_VOCAB} rows, batch "
+          f"{H_RESUME_BATCH}): losses and final parameters == 20 straight "
+          f"steps (bitwise)")
+    check(resume_counts == dict(NO_LAUNCHES, embedding_bag=80,
+                                scatter_add=80),
+          f"resume launches {resume_counts}: 2 + 2 per step over 40 steps")
+    del ref_p, got_p
+    torch.cuda.empty_cache()
+    return {k: counts[k] + resume_counts[k] for k in counts}
+
+
+def phase_h_scatter(user_ids, cfg, dev) -> None:
+    """The user table gradient's write-back at a training batch's shape
+    (every lookup's value row, sorted by row; the example's users repeat
+    one id over all 128 slots): ``scatter_add_`` bitwise vs its plain
+    version, with times. Printed only (phase A's ``scatter_add`` row stays
+    at phase D's shape)."""
+    import torch
+
+    from repro_torch.kernels.gather_scatter import ops, ref
+
+    rows, _ = torch.sort(user_ids.reshape(-1), stable=True)
+    R, D = rows.numel(), cfg.embed_dim
+    gen = torch.Generator(device=dev).manual_seed(3)
+    values = torch.randn((R, D), generator=gen, device=dev)
+    base = torch.zeros((cfg.user_vocab, D), device=dev)
+    k = ops.scatter_add_(base.clone(), rows, values)
+    p = ref.scatter_add_ref(base.clone(), rows, values)
+    torch.cuda.synchronize()
+    U = int(torch.unique(rows).numel())
+    check(torch.equal(k, p), f"scatter_add bitwise vs plain at the user "
+          f"table gradient ({cfg.user_vocab} x {D}, {R} value rows, {U} "
+          f"distinct)")
+    del k, p
+    b_ms, b_by = bound(R * D * 4 + 2 * U * D * 4 + 4 * R, float(R * D))
+    kb, pb = base.clone(), base.clone()
+    print(f"  scatter_add at the user table gradient: kernel "
+          f"{time_ms(lambda: ops.scatter_add_(kb, rows, values)):.4f} ms, "
+          f"plain {time_ms(lambda: ref.scatter_add_ref(pb, rows, values)):.4f}"
+          f" ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    del kb, pb, base, values
+    torch.cuda.empty_cache()
+
+
 # ----------------------------------------------------------------- phase E
 def phase_e(dev):
     import shutil
@@ -893,16 +1315,21 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_e(dev)
     print(f"phase E: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    tt_serving = phase_h_serving(dev)
+    tt_training = phase_h_training(dev)
+    print(f"phase H: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"all phases: {time.perf_counter() - t_all:.1f} s", flush=True)
 
     kernels = []
     for name, r in results.items():
         # each kernel's launches over the serving, GCN training, GAT
-        # training and other families' training paths, every count read
-        # right after its two runs
+        # training, other families' training and two-tower serving and
+        # training paths, every count read right after its runs
         n = sum(serving[m][name] + training[m][name] for m in MODES)
         n += sum(counts[name] for counts in gat.values())
         n += sum(counts[name] for counts in families.values())
+        n += tt_serving[name] + tt_training[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE[name],
             replaces=REPLACES[name], launches=n, **r,

@@ -11,7 +11,10 @@ own copy. Entry points run on the CUDA device unless the caller passes
 Ported so far: the serving slice — ``OffloadedInference`` +
 ``EmbeddingServer`` over the shared ``ForwardRunner`` pipeline — and the
 training slice — ``SSOEngine`` (regather and snapshot), AdamW, atomic
-checkpoints and the epoch-checkpointed loop — with GCN layers and the three
-hand-written CUDA kernels on those paths (``gather_rows``,
-``gather_aggregate``, ``scatter_add`` in ``kernels/gather_scatter/csrc/``).
+checkpoints and the epoch-checkpointed loop — with all six GNN families;
+the two-tower retrieval model (``models/recsys/``, serving and training,
+with its example drivers in ``examples/``); and the hand-written CUDA
+kernels on those paths (``gather_rows``, ``gather_aggregate``,
+``scatter_add``, ``edge_softmax``, ``embedding_bag`` in
+``kernels/*/csrc/``).
 """

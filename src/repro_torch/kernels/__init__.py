@@ -13,6 +13,9 @@ kernels or to the reference path by mode and device.
   write-back).
 - edge_softmax: ``edge_softmax`` (GAT's per-destination attention softmax;
   ``EdgeSoftmax`` adds its plain, deterministic backward).
+- embedding_bag: ``embedding_bag`` (the two-tower model's bag mean over
+  fixed-size bags; ``EmbeddingBag`` adds its dense, deterministic backward
+  through ``scatter_add_``).
 
 :func:`launch_counts` reads every kernel's launches since the last
 :func:`reset_launches`.
@@ -20,9 +23,14 @@ kernels or to the reference path by mode and device.
 from typing import Dict
 
 from repro_torch.kernels.edge_softmax import ops as _es_ops
+from repro_torch.kernels.embedding_bag import ops as _eb_ops
 from repro_torch.kernels.edge_softmax.ops import EdgeSoftmax, edge_softmax
 from repro_torch.kernels.edge_softmax.ref import (
     edge_softmax_backward_ref, edge_softmax_np, edge_softmax_ref,
+)
+from repro_torch.kernels.embedding_bag.ops import EmbeddingBag, embedding_bag
+from repro_torch.kernels.embedding_bag.ref import (
+    embedding_bag_backward_ref, embedding_bag_ref,
 )
 from repro_torch.kernels.gather_scatter import ops as _gs_ops
 from repro_torch.kernels.gather_scatter.ops import (
@@ -36,18 +44,21 @@ from repro_torch.kernels.gather_scatter.ref import (
 
 def launch_counts() -> Dict[str, int]:
     """Launches per kernel since the last :func:`reset_launches`."""
-    return {**_gs_ops.LAUNCHES, **_es_ops.LAUNCHES}
+    return {**_gs_ops.LAUNCHES, **_es_ops.LAUNCHES, **_eb_ops.LAUNCHES}
 
 
 def reset_launches() -> None:
     _gs_ops.reset_launches()
     _es_ops.reset_launches()
+    _eb_ops.reset_launches()
 
 
 __all__ = [
-    "EdgeSoftmax", "edge_softmax", "gather_aggregate", "gather_rows",
-    "launch_counts", "reset_launches", "scatter_add_",
+    "EdgeSoftmax", "EmbeddingBag", "edge_softmax", "embedding_bag",
+    "gather_aggregate", "gather_rows", "launch_counts", "reset_launches",
+    "scatter_add_",
     "edge_softmax_backward_ref", "edge_softmax_np", "edge_softmax_ref",
+    "embedding_bag_backward_ref", "embedding_bag_ref",
     "gather_aggregate_ref", "gather_aggregate_ref_fma", "gather_rows_ref",
     "scatter_add_ref", "scatter_add_ref_np",
 ]

@@ -7,11 +7,18 @@ pipelined run, each of ``epochs`` epochs (forward, loss, backward) followed
 by an AdamW update — and checks that the losses and gradients are finite
 and that the pipelined run equals the serial one bitwise.
 
-Exit status 0 iff every check passes; 2 for a non-GNN arch, or without
-``--offload`` (the reference's ``--smoke`` / dry-run paths run
-non-GNN models, which are not ported). The reference launcher's
-``--telemetry-port`` and ``--ledger`` options are not carried over yet (the
-live exporter and the run ledger are not ported).
+``--arch two-tower-retrieval --smoke`` is the reference launcher's
+``arch.smoke()`` route for the recsys arch: one loss and gradient at the
+``SMOKE`` widths on the card (:func:`_recsys_smoke`), printed as ``loss``,
+``grad_norm`` and ``finite``, with the kernel path held against the
+reference path bitwise.
+
+Exit status 0 iff every check passes; 2 for an arch that is neither a GNN
+arch nor ``two-tower-retrieval``, for a GNN arch without ``--offload``, and
+for ``two-tower-retrieval`` without ``--smoke`` (the reference's dry-run
+path is not ported). The reference launcher's ``--telemetry-port`` and
+``--ledger`` options are not carried over yet (the live exporter and the
+run ledger are not ported).
 """
 from __future__ import annotations
 
@@ -29,6 +36,64 @@ def _rel_err(a, b) -> float:
     a = a.detach().double().cpu().numpy()
     b = b.detach().double().cpu().numpy()
     return float(np.max(np.abs(a - b)) / max(np.max(np.abs(a)), 1e-12))
+
+
+# recsys arch ids (``--smoke`` only)
+RECSYS_ARCHS = ("two-tower-retrieval",)
+RECSYS_SMOKE_BATCH = 8
+
+
+def _recsys_smoke(device=None) -> dict:
+    """The reference's ``make_recsys_arch(...).smoke()`` for
+    ``two-tower-retrieval`` on ``device`` (the CUDA card unless
+    ``device="cpu"``): the ``SMOKE`` model from ``torch.Generator`` seed 0,
+    8 users and items of random ids (numpy seeds 1 and 2), and one in-batch
+    softmax loss with its gradients, through the kernel path
+    (``kernels="auto"``) and the reference path.
+
+    Returns ``loss``, ``acc``, ``grad_norm`` (the sum of every gradient's
+    absolute values, as the reference prints it), ``finite`` (loss and
+    every gradient), ``kernel_matches_reference`` (loss and every gradient
+    bitwise) and ``launches`` (each kernel's launches in the kernel path's
+    call: two ``embedding_bag`` and two ``scatter_add`` on the card, none on
+    the CPU, checked in ``launches_ok``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.two_tower_retrieval import SMOKE as cfg
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.recsys.two_tower import (
+        init_two_tower, two_tower_value_and_grad,
+    )
+
+    device = resolve_device(device)
+    model = init_two_tower(cfg, torch.Generator(device).manual_seed(0),
+                           device)
+
+    def ids(seed, n_fields, vocab):
+        a = np.random.default_rng(seed).integers(
+            0, vocab, (RECSYS_SMOKE_BATCH, n_fields, cfg.bag_size))
+        return torch.from_numpy(a.astype(np.int32)).to(device)
+
+    u = ids(1, cfg.n_user_fields, cfg.user_vocab)
+    i = ids(2, cfg.n_item_fields, cfg.item_vocab)
+    reset_launches()
+    (loss, acc), grads = two_tower_value_and_grad(model, u, i, cfg, "auto")
+    launches = {k: v for k, v in launch_counts().items() if v}
+    (loss_r, _), grads_r = two_tower_value_and_grad(model, u, i, cfg,
+                                                    "reference")
+    want = ({"embedding_bag": 2, "scatter_add": 2}
+            if device.type == "cuda" else {})
+    return dict(
+        loss=float(loss), acc=float(acc),
+        grad_norm=float(sum(float(g.abs().sum()) for g in grads.values())),
+        finite=bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in grads.values()),
+        kernel_matches_reference=bool(torch.equal(loss, loss_r)) and all(
+            torch.equal(grads[k], grads_r[k]) for k in grads),
+        launches=launches, launches_ok=launches == want,
+    )
 
 
 # the dense oracle check (float64 oracle): loss and max-relative gradients
@@ -233,8 +298,9 @@ def _train_smoke(
 def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="a GNN arch id (e.g. gcn-cora); the model family "
-                         "is recovered from the config naming convention")
+                    help="a GNN arch id (e.g. gcn-cora; the model family "
+                         "is recovered from the config naming convention) "
+                         "or two-tower-retrieval")
     ap.add_argument("--offload", action="store_true",
                     help="run the storage-offloading engine smoke (GNN "
                          "archs; uses the SSO pipeline runtime)")
@@ -250,15 +316,27 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--trace", metavar="OUT.json", default=None,
                     help="write a Chrome/Perfetto trace_event timeline of "
                          "the --offload run (open in ui.perfetto.dev)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="one loss and gradient of a recsys arch at its "
+                         "SMOKE widths on the card")
     args = ap.parse_args(argv)
     if args.trace:
         import logging
         logging.basicConfig(level=logging.INFO,
                             format="%(name)s %(message)s")
 
+    if args.arch in RECSYS_ARCHS:
+        if args.offload or not args.smoke:
+            print(f"{args.arch}: only --smoke is ported for recsys archs "
+                  f"(--offload needs a GNN arch)")
+            sys.exit(2)
+        r = _recsys_smoke()
+        print(f"{args.arch} smoke: {r}")
+        ok = r["finite"] and r["kernel_matches_reference"] and r["launches_ok"]
+        sys.exit(0 if ok else 1)
     if args.arch not in GNN_ARCHS:
         print(f"{args.arch}: training requires a GNN arch "
-              f"(one of {sorted(GNN_ARCHS)})")
+              f"(one of {sorted(GNN_ARCHS)}) or one of {sorted(RECSYS_ARCHS)}")
         sys.exit(2)
     model = GNN_ARCHS[args.arch]
     if not args.offload:

@@ -1,5 +1,5 @@
 """Weight converters between the reference (JAX) parameter pytrees and the
-port's layers, both ways, for the six GNN families.
+port's layers, both ways, for the six GNN families and the two-tower model.
 
 The tests use them to hand both packages the same weights and to compare
 gradients and trained weights; ``chip_smoke.py`` never imports JAX and
@@ -14,6 +14,10 @@ A dense sub-layer ``{"w": (d_in, d_out), "b": (d_out,)}`` is an
 family's reference keys to the port's attribute names (the reference's
 ``self`` is the port's ``lin_self``). A layer's family is recognised from
 its key set, or named with ``model=``.
+
+The two-tower model keeps the reference's layout: its tables and its
+towers' ``w (in, out)`` / ``b`` are parameters of the same shapes and names
+(``user_mlp.<i>.w`` for ``params["user_mlp"][i]["w"]``).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.gnn.layers import GNN_REGISTRY
+from repro_torch.models.recsys.two_tower import TwoTower
 
 # family -> ((reference key, port attribute, dense?), ...), in the port
 # layer's parameter order
@@ -159,3 +164,48 @@ def grads_to_jax(grads: List[Dict[str, torch.Tensor]],
         fam = _family(g, _BY_GRAD_KEYS, i, "grads", model)
         out.append(_to_jax(fam, g.__getitem__))
     return out
+
+
+_TOWERS = ("user_mlp", "item_mlp")
+_TABLES = ("user_table", "item_table")
+
+
+def two_tower_from_jax(params_np: Dict, device: DeviceLike = None) -> TwoTower:
+    """The reference's two-tower params (``user_table``, ``item_table``,
+    ``user_mlp`` / ``item_mlp`` lists of ``{"w", "b"}``, as numpy) -> a
+    :class:`TwoTower` on ``device``."""
+    device = resolve_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32, order="C")).to(device)
+
+    return TwoTower(
+        *(t(params_np[k]) for k in _TABLES),
+        *([(t(l["w"]), t(l["b"])) for l in params_np[k]] for k in _TOWERS),
+    )
+
+
+def _two_tower_np(get, n_layers: Dict[str, int]) -> Dict:
+    out = {k: _to_np(get(k)) for k in _TABLES}
+    for k in _TOWERS:
+        out[k] = [{"w": _to_np(get(f"{k}.{i}.w")), "b": _to_np(get(f"{k}.{i}.b"))}
+                  for i in range(n_layers[k])]
+    return out
+
+
+def _tower_depths(names) -> Dict[str, int]:
+    return {k: len({n.split(".")[1] for n in names if n.startswith(k + ".")})
+            for k in _TOWERS}
+
+
+def two_tower_to_numpy(model: TwoTower) -> Dict:
+    """A :class:`TwoTower` -> the reference's numpy params layout (the
+    inverse of :func:`two_tower_from_jax`)."""
+    named = dict(model.named_parameters())
+    return _two_tower_np(named.__getitem__, _tower_depths(named))
+
+
+def two_tower_grads_to_jax(grads: Dict[str, torch.Tensor]) -> Dict:
+    """The port's ``{parameter name: gradient}`` (``two_tower_value_and_grad``)
+    -> the reference's numpy params layout."""
+    return _two_tower_np(grads.__getitem__, _tower_depths(grads))

@@ -1,5 +1,5 @@
-"""The CUDA kernels (gather/scatter, edge softmax) on the card, against the
-numpy oracles.
+"""The CUDA kernels (gather/scatter, edge softmax, embedding bag) on the
+card, against the numpy oracles and their plain versions.
 
 Marked ``cuda``: they skip where there is no CUDA device (the kernels have
 no CPU mode; the CPU tests cover the plain versions). This file imports
@@ -13,6 +13,8 @@ import torch
 
 from repro_torch.kernels.edge_softmax import ops as es_ops
 from repro_torch.kernels.edge_softmax import ref as es_ref
+from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.embedding_bag import ref as eb_ref
 from repro_torch.kernels.gather_scatter import ops, ref
 
 
@@ -195,3 +197,108 @@ def test_cuda_edge_softmax_refuses_bad_inputs(cuda_dev):
     with pytest.raises(ValueError, match="n_dst=0"):
         es_ops.edge_softmax(s, d, 0)
     assert es_ops.LAUNCHES["edge_softmax"] == before
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal values, NaN where the other is NaN (the card's NaN has its
+    own bits, so this is bitwise up to the NaN payload)."""
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("V,D,n_bags,bag", [
+    (300, 256, 64, 16), (100, 7, 33, 6), (50, 16, 9, 3), (1000, 1, 17, 5),
+    (64, 33, 40, 1), (500, 132, 8, 40),
+])
+def test_cuda_embedding_bag_bitwise_vs_plain(cuda_dev, V, D, n_bags, bag,
+                                             mode, rng):
+    table = rng.standard_normal((V, D), dtype=np.float32)
+    ids = rng.integers(0, V, (n_bags, bag)).astype(np.int32)
+    if bag > 1:
+        ids[::2, 1] = ids[::2, 0]          # duplicate rows inside a bag
+    t_d, i_d = _on(cuda_dev, table, ids)
+    before = eb_ops.LAUNCHES["embedding_bag"]
+    got = eb_ops.embedding_bag(t_d, i_d, mode)
+    torch.cuda.synchronize()
+    assert eb_ops.LAUNCHES["embedding_bag"] == before + 1
+    assert torch.equal(got, eb_ref.embedding_bag_ref(t_d, i_d, mode))
+    want = table[ids].sum(1, dtype=np.float64)
+    if mode == "mean":
+        want /= bag
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-5, atol=1e-5)
+    # a table view that is not 16-byte aligned takes the scalar path
+    if D % 4 == 0:
+        big = torch.zeros(V * D + 1, device=cuda_dev)
+        big[1:] = t_d.reshape(-1)
+        assert torch.equal(eb_ops.embedding_bag(big[1:].view(V, D), i_d, mode),
+                           got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [5, 16])
+def test_cuda_embedding_bag_wraps_and_nans(cuda_dev, D, rng):
+    V = 12
+    table = rng.standard_normal((V, D), dtype=np.float32)
+    ids = np.array([[1, -1, 3], [V, 0, 2], [-V, 4, 4], [-V - 1, 5, 6],
+                    [7, 8, 9], [2, -5, 11]], np.int32)
+    t_d, i_d = _on(cuda_dev, table, ids)
+    for mode in ("sum", "mean"):
+        got = eb_ops.embedding_bag(t_d, i_d, mode)
+        torch.cuda.synchronize()
+        assert _same(got, eb_ref.embedding_bag_ref(t_d, i_d, mode))
+        nan_rows = torch.isnan(got).all(1).cpu().tolist()
+        assert nan_rows == [False, True, False, True, False, False]
+        assert not torch.isnan(got[[0, 2, 4, 5]]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_cuda_embedding_bag_backward_through_scatter_add(cuda_dev, mode, rng):
+    """The kernel route's gradient (the ``scatter_add_`` kernel) equals the
+    reference route's and the ``np.add.at`` oracle bitwise."""
+    V, D, n_bags, bag = 200, 24, 300, 6
+    table = rng.standard_normal((V, D), dtype=np.float32)
+    ids = rng.integers(-V, V, (n_bags, bag)).astype(np.int32)
+    ids[5, 2] = V + 3                      # names no row: adds nothing
+    d_out = rng.standard_normal((n_bags, D), dtype=np.float32)
+    grads = {}
+    before = dict(eb_ops.LAUNCHES, **ops.LAUNCHES)
+    for kernels in ("kernel", "reference"):
+        t_d = torch.from_numpy(table).to(cuda_dev).requires_grad_(True)
+        out = eb_ops.EmbeddingBag.apply(t_d, _on(cuda_dev, ids)[0], mode,
+                                        kernels)
+        (grads[kernels],) = torch.autograd.grad(
+            out, t_d, _on(cuda_dev, d_out)[0])
+    torch.cuda.synchronize()
+    assert eb_ops.LAUNCHES["embedding_bag"] == before["embedding_bag"] + 1
+    assert ops.LAUNCHES["scatter_add"] == before["scatter_add"] + 1
+    assert torch.equal(grads["kernel"], grads["reference"])
+    flat = ids.reshape(-1).astype(np.int64)
+    flat = np.where(flat < 0, flat + V, flat)
+    ok = flat < V
+    vals = d_out[np.arange(flat.size) // bag]
+    if mode == "mean":
+        vals = vals / np.float32(bag)
+    want = np.zeros((V, D), np.float32)
+    np.add.at(want, flat[ok], vals[ok])
+    np.testing.assert_array_equal(grads["kernel"].cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_embedding_bag_refuses_bad_inputs(cuda_dev):
+    t = torch.zeros(8, 4, device=cuda_dev)
+    ids = torch.zeros(3, 2, dtype=torch.int32, device=cuda_dev)
+    before = eb_ops.LAUNCHES["embedding_bag"]
+    with pytest.raises(TypeError):
+        eb_ops.embedding_bag(t, ids.long())
+    with pytest.raises(TypeError):
+        eb_ops.embedding_bag(t.double(), ids)
+    with pytest.raises(ValueError, match="expected"):
+        eb_ops.embedding_bag(t, ids.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        eb_ops.embedding_bag(torch.zeros(4, 8, device=cuda_dev).t(), ids)
+    with pytest.raises(ValueError, match="mode"):
+        eb_ops.embedding_bag(t, ids, "max")
+    assert eb_ops.embedding_bag(t, ids[:0]).shape == (0, 4)
+    assert eb_ops.LAUNCHES["embedding_bag"] == before
