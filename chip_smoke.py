@@ -27,7 +27,16 @@ source, all started together), then:
   widths and NaN / wrapped ids, then at phase H's ``serve_bulk`` user-tower
   shape (table 10,000,000 x 256, ids (2,097,152, 16) uniform from numpy
   seed 0) in sum and mean, with kernel, plain, bound and
-  ``F.embedding_bag(mode="mean")`` times.
+  ``F.embedding_bag(mode="mean")`` times. ``flash_attention`` in float32
+  within 2e-5 of the float64 oracle and in bf16 within 1 bf16 ulp (or 1e-6
+  absolute, near 0) of its plain version at small shapes (the JAX kernel
+  tests' grid, a ragged S of 200, Sq != Skv both ways, D 8 / 32 / 64 /
+  128; causal, window 64, non-causal), then at one prefill launch of phase
+  I in bf16 (B 1, S 32,768, 40 query and 10 KV heads of 128, causal):
+  within 2^-7 |plain| + 1e-6 of plain elementwise, at least 99% of the
+  elements bitwise equal, a rerun bitwise; with kernel, plain, bound (bf16
+  tensor-core and float32 rates) and SDPA (flash backend, KV repeated to
+  40 heads, checked within 2^-5 of plain) times.
 - Phase B: the port's ``launch.infer`` default smoke on the card (2000
   nodes, dims [24, 32, 8]): finite, pipelined == serial, served == dense;
   then the ``launch.train`` and ``launch.infer`` default smokes of each of
@@ -105,6 +114,24 @@ source, all started together), then:
   that crashes in epoch 2 and a second loop that resumes from the epoch-2
   checkpoint: its final parameters equal an uninterrupted run's bitwise.
 
+- Phase I, Phi-3-medium-14B serving (``phi3_medium_14b`` ``CONFIG``: 40
+  layers, d_model 5120, 40 query and 10 KV heads of 128, d_ff 17,920,
+  vocab 100,352, bf16), weights from ``torch.Generator`` seed 0 on the
+  card, tokens from numpy seeds, after everything before it is freed:
+  (1) ``make_prefill_step`` in kernel and reference modes at batch 1 and
+  4,096 tokens, all 40 layers: last logits within ``LM_KERNEL_TOL``, 40
+  ``flash_attention`` launches in kernel mode, none in reference;
+  (2) ``prefill_32k`` at batch 1 (cut from 32), 32,768 tokens, one timed
+  call after a 1,024-token warm-up (the launcher's ``_lm_prefill``): 40
+  launches, finite logits, wall, tokens/s, TFLOP/s, peak device GB;
+  (3) ``decode_32k`` at batch 4 (cut from 128): a 32,768-position cache
+  filled to 32,736 with seeded normals, then 32 greedy steps
+  (``_lm_decode``): finite logits, p50 / p99 ms a step, tokens/s, peak
+  GB, no kernel launch (the reference's decode reaches no Pallas kernel);
+  (4) a 64-token prompt decoded token by token against ``lm_forward``
+  (kernel mode) within ``LM_ROUNDTRIP_TOL``; (5) checks 1 and 4 in
+  float32 at the same widths and 2 layers, within ``LM_F32_TOL``.
+
 Any failed check exits non-zero; no phase's failure is caught. TF32 is off
 for matmuls and cuDNN (float32 means float32 here). The last line is the
 JSON device record; the line before it the per-kernel JSON record.
@@ -123,6 +150,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12         # H100 SXM float32, outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 GS_SOURCE = "src/repro_torch/kernels/gather_scatter/csrc/gather_scatter.cu"
 SOURCE = {
     "gather_rows": GS_SOURCE,
@@ -131,6 +159,8 @@ SOURCE = {
     "edge_softmax": "src/repro_torch/kernels/edge_softmax/csrc/edge_softmax.cu",
     "embedding_bag":
         "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
+    "flash_attention":
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
 }
 REPLACES = {
     "gather_rows": "src/repro/kernels/gather_scatter/gather_scatter.py:50",
@@ -138,8 +168,11 @@ REPLACES = {
     "scatter_add": "src/repro/kernels/gather_scatter/gather_scatter.py:141",
     "edge_softmax": "src/repro/kernels/edge_softmax/edge_softmax.py:40",
     "embedding_bag": "src/repro/kernels/embedding_bag/embedding_bag.py:33",
+    "flash_attention":
+        "src/repro/kernels/flash_attention/flash_attention.py:72",
 }
-KERNEL_PACKAGES = ("gather_scatter", "edge_softmax", "embedding_bag")
+KERNEL_PACKAGES = ("gather_scatter", "edge_softmax", "embedding_bag",
+                   "flash_attention")
 NO_LAUNCHES = {k: 0 for k in REPLACES}
 NEW_FAMILIES = ("sage", "gat", "gin", "pna", "graphcast")
 GAT_HEADS = 4                  # GAT's hidden layers (gat_init's default)
@@ -166,6 +199,28 @@ H_TRAIN_BATCH = 16384
 H_TRAIN_STEPS = 20
 H_RESUME_VOCAB = 250_000
 H_RESUME_BATCH = 1024
+# phase I: phi3-medium-14b serving; the prefill cell's sequence at batch 1
+# (cut from 32), the decode cell at batch 4 (cut from 128) against a
+# 32,768-position cache filled to DECODE_FILL, and the checks' lengths
+PREFILL_SEQ = 32768
+PREFILL_BATCH = 1
+PREFILL_WARMUP_SEQ = 1024
+CHECK_SEQ = 4096
+DECODE_SEQ = 32768
+DECODE_BATCH = 4
+DECODE_STEPS = 32
+DECODE_FILL = DECODE_SEQ - DECODE_STEPS
+ROUNDTRIP_SEQ = 64
+# phase I's tolerances (max |a - b| / max |a| of the logits). bf16 at full
+# depth, 2.5x the card's first readings (PERF.md: 2.03e-2 kernel vs
+# reference at CHECK_SEQ tokens, 2.28e-2 decode vs prefill): the two
+# routes round the residual stream at other places and 40 random layers
+# amplify it. float32 at 2 layers: the same checks, where rounding is
+# float32's.
+LM_KERNEL_TOL = 5e-2
+LM_ROUNDTRIP_TOL = 5e-2
+LM_F32_LAYERS = 2
+LM_F32_TOL = 1e-4
 
 
 def check(cond, what: str) -> None:
@@ -363,6 +418,7 @@ def phase_a(plan, d_in: int, dev):
     results["scatter_add"] = phase_a_scatter(plan, DIMS[1], dev)
     results["edge_softmax"] = phase_a_softmax(u, dev)
     results["embedding_bag"] = phase_a_bag(dev)
+    results["flash_attention"] = phase_a_flash(dev)
     for name, r in results.items():
         lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
                else "none")
@@ -598,6 +654,128 @@ def phase_a_bag(dev) -> dict:
                                                    mode="mean")),
     )
     del k, table, ids, ids64
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_a_flash(dev) -> dict:
+    """``flash_attention`` at small shapes (the JAX kernel tests' grid, a
+    ragged S of 200, Sq != Skv both ways, D 64 and the LM smoke's D 8;
+    causal, window 64 and non-causal): float32 within 2e-5 of the float64
+    oracle, bf16 within 1 bf16 ulp of the plain version elementwise (or
+    1e-6 absolute, near 0). Then
+    one prefill launch of phase I in bf16 (B 1, S 32,768, Hq 40, Hkv 10,
+    D 128, causal) against the plain version: within 2^-7 |plain| + 1e-6
+    elementwise, at least 99% of the elements bitwise equal, a rerun
+    bitwise; with kernel, plain and SDPA times."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    rng = np.random.default_rng(0)
+    shapes = [(1, 128, 128, 4, 4, 32), (2, 256, 256, 8, 2, 64),
+              (1, 512, 512, 4, 1, 128), (1, 200, 200, 4, 2, 128),
+              (1, 96, 200, 8, 2, 64), (1, 200, 160, 4, 2, 64),
+              (2, 40, 40, 8, 2, 8)]
+    worst_f32, worst_ulp = 0.0, 0
+    for (B, Sq, Skv, Hq, Hkv, D) in shapes:
+        q = rng.standard_normal((B, Sq, Hq, D), dtype=np.float32)
+        k = rng.standard_normal((B, Skv, Hkv, D), dtype=np.float32)
+        v = rng.standard_normal((B, Skv, Hkv, D), dtype=np.float32)
+        qd, kd, vd = (torch.from_numpy(a).to(dev) for a in (q, k, v))
+        for causal, window in [(True, None), (True, 64), (False, None)]:
+            if window is not None and Sq > Skv + window - 1:
+                continue
+            got = ops.flash_attention(qd, kd, vd, causal, window)
+            want = ref.attention_np(q, k, v, causal, window)
+            err = np.abs(got.cpu().numpy() - want)
+            worst_f32 = max(worst_f32, float(err.max()))
+            check(bool(np.all(err <= 2e-5 + 2e-5 * np.abs(want))),
+                  f"flash_attention f32 within 2e-5 of the float64 oracle "
+                  f"(B={B} Sq={Sq} Skv={Skv} Hq={Hq} Hkv={Hkv} D={D} "
+                  f"causal={causal} window={window}; max err "
+                  f"{float(err.max()):.3e})")
+            qb, kb, vb = (t.to(torch.bfloat16) for t in (qd, kd, vd))
+            got = ops.flash_attention(qb, kb, vb, causal, window)
+            plain = ref.flash_attention_ref(qb, kb, vb, causal, window)
+            ulps = ref.bf16_ulp_distance(got, plain)
+            far = ulps > 1
+            far_err = float((got.float() - plain.float()).abs()[far].max()) \
+                if bool(far.any()) else 0.0
+            worst_ulp = max(worst_ulp, int(ulps.max()))
+            check(ref.within_one_bf16_ulp(got, plain),
+                  f"flash_attention bf16 within 1 ulp (or "
+                  f"{ref.BF16_ABS_FLOOR:g}) of plain (same shape and mask; "
+                  f"max {int(ulps.max())} ulp; {int(far.sum())} elements "
+                  f"past 1 ulp, max abs diff there {far_err:.3e}, at "
+                  f"|plain| <= {float(plain.float().abs()[far].max()) if bool(far.any()) else 0.0:.3e})")
+
+    # the main path's shape: one prefill launch of phase I
+    B, S, Hq, Hkv, D = 1, PREFILL_SEQ, 40, 10, 128
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((B, S, Hq, D), generator=gen, device=dev).bfloat16()
+    k = torch.randn((B, S, Hkv, D), generator=gen, device=dev).bfloat16()
+    v = torch.randn((B, S, Hkv, D), generator=gen, device=dev).bfloat16()
+    t0 = time.perf_counter()
+    kern = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    plain = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    kf, pf = kern.float(), plain.float()
+    err = (kf - pf).abs()
+    check(bool(torch.all(err <= 2.0 ** -7 * pf.abs() + 1e-6)),
+          f"flash_attention bf16 within 2^-7 |plain| + 1e-6 of plain at "
+          f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, causal (max abs err "
+          f"{float(err.max()):.3e}; first launch {t_first:.3f} s)")
+    same = float((kern == plain).float().mean())
+    check(same >= 0.99, f"flash_attention: {same:.6f} of the elements "
+          f"bitwise equal to plain (>= 0.99)")
+    check(torch.equal(ops.flash_attention(q, k, v), kern),
+          "flash_attention deterministic (rerun bitwise)")
+    max_err = float(err.max())
+    del kf, pf, err
+    pairs = B * Hq * S * (S + 1) / 2.0
+    flops = 4.0 * D * pairs
+    nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + kern.numel())
+    t_tc = flops / BF16_FLOP_PER_S * 1e3
+    t_f32 = flops / F32_FLOP_PER_S * 1e3
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    # the library yardstick: SDPA (flash backend, bf16 P) on KV repeated to
+    # Hq heads, (B, H, S, D), made outside the timed region
+    G = Hq // Hkv
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        lib_err = rel_err(plain.float().cpu().numpy(),
+                          lib.transpose(1, 2).float().cpu().numpy())
+        del lib
+        check(lib_err <= 2.0 ** -5,
+              f"SDPA (bf16 P) within 2^-5 max-relative of plain "
+              f"({lib_err:.3e})")
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+    del qt, kt, vt, plain
+    out = dict(
+        max_abs_err=max_err,
+        ms=time_ms(lambda: ops.flash_attention(q, k, v)),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v)),
+        bound_ms=max(t_tc, t_b), bound_by="operations" if t_tc >= t_b
+        else "bytes",
+        library_ms=lib_ms,
+    )
+    print(f"  flash_attention: small shapes max err {worst_f32:.3e} (f32 vs "
+          f"float64), max {worst_ulp} bf16 ulp vs plain; at the prefill "
+          f"shape {pairs:.4e} (q, k) pairs, {flops:.4e} FLOP: bound "
+          f"{t_tc:.4f} ms at the bf16 tensor-core rate, {t_f32:.4f} ms at "
+          f"the float32 rate, {t_b:.4f} ms for the bytes; kernel "
+          f"{flops / out['ms'] / 1e9:.2f} TFLOP/s", flush=True)
+    del q, k, v, kern
     torch.cuda.empty_cache()
     return out
 
@@ -1257,6 +1435,163 @@ def phase_e(dev):
           "uninterrupted run's (bitwise)")
 
 
+# ----------------------------------------------------------------- phase I
+def phase_i(dev) -> dict:
+    """Phi-3-medium-14B serving at ``CONFIG`` widths (40 layers, d_model
+    5120, 40 query and 10 KV heads of 128, d_ff 17,920, vocab 100,352,
+    bf16), weights from a ``torch.Generator`` seeded 0 on the card, tokens
+    from numpy seeds. Returns each kernel's launches over its runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.phi3_medium_14b import CONFIG as cfg
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.train import _lm_decode, _lm_prefill
+    from repro_torch.models.lm.steps import make_prefill_step
+    from repro_torch.models.lm.transformer import init_lm_params
+
+    L = cfg.n_layers
+    print(f"phase I: {cfg.name} serving at its published widths "
+          f"({L} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, {cfg.dtype})", flush=True)
+    t0 = time.perf_counter()
+    model = init_lm_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    # param_count() leaves the final norm out, as the reference's does
+    check(n_params == cfg.param_count() + cfg.d_model
+          and cfg.param_count() == 14_659_502_080,
+          f"{n_params} parameters == param_count() 14,659,502,080 + the "
+          f"final norm ({2 * n_params / 1e9:.2f} GB in bf16; made in "
+          f"{time.perf_counter() - t0:.1f} s)")
+    counts = dict(NO_LAUNCHES)
+
+    def tally(want_flash: int, what: str) -> None:
+        n = launch_counts()
+        check(n == dict(NO_LAUNCHES, flash_attention=want_flash),
+              f"{what}: launches {n} == {want_flash} flash_attention")
+        for k, v in n.items():
+            counts[k] += v
+
+    # 1. the kernel route against the plain chunked_attention, full depth
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, CHECK_SEQ)).astype(np.int32)).to(dev)
+    logits = {}
+    for mode in ("kernel", "reference"):
+        reset_launches()
+        t0 = time.perf_counter()
+        logits[mode] = make_prefill_step(cfg, mode, dev)(model, toks)
+        torch.cuda.synchronize()
+        print(f"  prefill {mode} at {CHECK_SEQ} tokens: "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        tally(L if mode == "kernel" else 0, f"prefill {mode} at "
+              f"{CHECK_SEQ} tokens")
+    err = rel_err(logits["reference"].cpu().numpy(),
+                  logits["kernel"].cpu().numpy())
+    check(bool(torch.isfinite(logits["kernel"]).all()) and
+          err <= LM_KERNEL_TOL,
+          f"prefill at {CHECK_SEQ} tokens, {L} layers: kernel's last "
+          f"logits within {LM_KERNEL_TOL} max-relative of reference's "
+          f"({err:.3e})")
+    del logits, toks
+
+    # 2. prefill_32k at batch 1 (cut from 32)
+    reset_launches()
+    r = _lm_prefill(model, PREFILL_BATCH, PREFILL_SEQ, "kernel",
+                    warmup_seq=PREFILL_WARMUP_SEQ)
+    tally(2 * L, f"prefill_32k (warm-up at {PREFILL_WARMUP_SEQ} + timed)")
+    check(r["launches"] == L and r["finite"],
+          f"prefill_32k: {r['launches']} flash_attention launches in the "
+          f"timed call == {L}, finite last logits {tuple(r['logits'].shape)}")
+    print(f"  prefill_32k (batch {PREFILL_BATCH}, {PREFILL_SEQ} tokens): "
+          f"wall {r['wall_s']:.3f} s, {r['tokens_per_s']:.1f} tokens/s, "
+          f"{r['tflops']:.2f} TFLOP/s, peak device {r['peak_gb']:.2f} GB",
+          flush=True)
+    out = dict(prefill=r)
+    del r["logits"]
+    torch.cuda.empty_cache()
+
+    # 3. decode_32k at batch 4 (cut from 128) against a 32k cache
+    reset_launches()
+    d = _lm_decode(model, DECODE_BATCH, DECODE_SEQ, DECODE_STEPS)
+    tally(0, "decode_32k")
+    check(d["finite"], f"decode_32k: {DECODE_STEPS} steps' logits finite")
+    cache_gb = 2.0 * L * DECODE_BATCH * DECODE_SEQ * cfg.n_kv_heads \
+        * cfg.d_head * 2 / 1e9
+    bound_ms = (2.0 * n_params / 1e9 + cache_gb) / HBM_BYTES_PER_S * 1e12
+    print(f"  decode_32k (batch {DECODE_BATCH}, cache {DECODE_SEQ} "
+          f"positions, {cache_gb:.2f} GB, filled to {DECODE_FILL}): p50 "
+          f"{d['p50_ms']:.3f} ms, p99 {d['p99_ms']:.3f} ms a step, "
+          f"{d['tokens_per_s']:.1f} tokens/s, {d['tflops']:.3f} TFLOP/s, "
+          f"peak device {d['peak_gb']:.2f} GB; bound (weights + cache at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s) {bound_ms:.3f} ms", flush=True)
+    out["decode"] = d
+    del d
+    torch.cuda.empty_cache()
+
+    # 4. decode == prefill: a prompt decoded token by token, full width
+    roundtrip(model, LM_ROUNDTRIP_TOL, tally)
+    del model
+    torch.cuda.empty_cache()
+
+    # 5. the same two checks in float32 at the same widths, 2 layers
+    f32 = dataclasses.replace(cfg, dtype=torch.float32,
+                              n_layers=LM_F32_LAYERS)
+    model = init_lm_params(f32, torch.Generator(dev).manual_seed(0), dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, CHECK_SEQ)).astype(np.int32)).to(dev)
+    reset_launches()
+    a, b = (make_prefill_step(f32, mode, dev)(model, toks)
+            for mode in ("kernel", "reference"))
+    tally(LM_F32_LAYERS, f"float32 prefill at {CHECK_SEQ} tokens")
+    err = rel_err(b.cpu().numpy(), a.cpu().numpy())
+    check(err <= LM_F32_TOL,
+          f"float32, {LM_F32_LAYERS} layers: prefill kernel within "
+          f"{LM_F32_TOL} max-relative of reference ({err:.3e})")
+    roundtrip(model, LM_F32_TOL, tally)
+    del model, a, b, toks
+    torch.cuda.empty_cache()
+    out["launches"] = counts
+    return out
+
+
+def roundtrip(model, tol: float, tally) -> None:
+    """A prompt of ``ROUNDTRIP_SEQ`` tokens (numpy seed 1) decoded token by
+    token against ``lm_forward`` on the same tokens in kernel mode: the
+    logits within ``tol`` max-relative."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models.lm.steps import make_decode_step
+    from repro_torch.models.lm.transformer import init_kv_cache, lm_forward
+
+    cfg, dev = model.cfg, model.device
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, ROUNDTRIP_SEQ)).astype(np.int32)).to(dev)
+    reset_launches()
+    with torch.no_grad():
+        full, _ = lm_forward(model, toks, "kernel")
+    cache = init_kv_cache(cfg, 1, ROUNDTRIP_SEQ, device=dev)
+    step = make_decode_step(cfg, "kernel", dev)
+    dec = []
+    for t in range(ROUNDTRIP_SEQ):
+        lg, cache = step(model, cache, toks[:, t:t + 1], t + 1)
+        dec.append(lg)
+    dec = torch.stack(dec, dim=1)
+    torch.cuda.synchronize()
+    tally(cfg.n_layers, f"{cfg.dtype} decode == prefill at {ROUNDTRIP_SEQ} "
+          f"tokens")
+    rt = rel_err(full.cpu().numpy(), dec.cpu().numpy())
+    check(bool(torch.isfinite(dec).all()) and rt <= tol,
+          f"{cfg.dtype}, {cfg.n_layers} layers: {ROUNDTRIP_SEQ} tokens "
+          f"decoded one at a time == lm_forward (kernel) within {tol} "
+          f"max-relative ({rt:.3e}; the reference's float32 figure is 2e-5)")
+
+
 def main() -> int:
     import torch
 
@@ -1319,17 +1654,21 @@ def main() -> int:
     tt_serving = phase_h_serving(dev)
     tt_training = phase_h_training(dev)
     print(f"phase H: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    lm = phase_i(dev)
+    print(f"phase I: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"all phases: {time.perf_counter() - t_all:.1f} s", flush=True)
 
     kernels = []
     for name, r in results.items():
         # each kernel's launches over the serving, GCN training, GAT
-        # training, other families' training and two-tower serving and
-        # training paths, every count read right after its runs
+        # training, other families' training, two-tower serving and
+        # training and LM serving paths, every count read right after its
+        # runs
         n = sum(serving[m][name] + training[m][name] for m in MODES)
         n += sum(counts[name] for counts in gat.values())
         n += sum(counts[name] for counts in families.values())
-        n += tt_serving[name] + tt_training[name]
+        n += tt_serving[name] + tt_training[name] + lm["launches"][name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE[name],
             replaces=REPLACES[name], launches=n, **r,

@@ -16,6 +16,8 @@ kernels or to the reference path by mode and device.
 - embedding_bag: ``embedding_bag`` (the two-tower model's bag mean over
   fixed-size bags; ``EmbeddingBag`` adds its dense, deterministic backward
   through ``scatter_add_``).
+- flash_attention: ``flash_attention`` (the LM prefill's causal /
+  sliding-window GQA attention, online softmax in float32).
 
 :func:`launch_counts` reads every kernel's launches since the last
 :func:`reset_launches`.
@@ -32,6 +34,11 @@ from repro_torch.kernels.embedding_bag.ops import EmbeddingBag, embedding_bag
 from repro_torch.kernels.embedding_bag.ref import (
     embedding_bag_backward_ref, embedding_bag_ref,
 )
+from repro_torch.kernels.flash_attention import ops as _fa_ops
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import (
+    attention_np, attention_ref, flash_attention_ref,
+)
 from repro_torch.kernels.gather_scatter import ops as _gs_ops
 from repro_torch.kernels.gather_scatter.ops import (
     gather_aggregate, gather_rows, scatter_add_,
@@ -44,21 +51,24 @@ from repro_torch.kernels.gather_scatter.ref import (
 
 def launch_counts() -> Dict[str, int]:
     """Launches per kernel since the last :func:`reset_launches`."""
-    return {**_gs_ops.LAUNCHES, **_es_ops.LAUNCHES, **_eb_ops.LAUNCHES}
+    return {**_gs_ops.LAUNCHES, **_es_ops.LAUNCHES, **_eb_ops.LAUNCHES,
+            **_fa_ops.LAUNCHES}
 
 
 def reset_launches() -> None:
     _gs_ops.reset_launches()
     _es_ops.reset_launches()
     _eb_ops.reset_launches()
+    _fa_ops.reset_launches()
 
 
 __all__ = [
     "EdgeSoftmax", "EmbeddingBag", "edge_softmax", "embedding_bag",
-    "gather_aggregate", "gather_rows", "launch_counts", "reset_launches",
-    "scatter_add_",
+    "flash_attention", "gather_aggregate", "gather_rows", "launch_counts",
+    "reset_launches", "scatter_add_",
     "edge_softmax_backward_ref", "edge_softmax_np", "edge_softmax_ref",
     "embedding_bag_backward_ref", "embedding_bag_ref",
+    "attention_np", "attention_ref", "flash_attention_ref",
     "gather_aggregate_ref", "gather_aggregate_ref_fma", "gather_rows_ref",
     "scatter_add_ref", "scatter_add_ref_np",
 ]

@@ -13,10 +13,25 @@ and that the pipelined run equals the serial one bitwise.
 ``grad_norm`` and ``finite``, with the kernel path held against the
 reference path bitwise.
 
-Exit status 0 iff every check passes; 2 for an arch that is neither a GNN
-arch nor ``two-tower-retrieval``, for a GNN arch without ``--offload``, and
-for ``two-tower-retrieval`` without ``--smoke`` (the reference's dry-run
-path is not ported). The reference launcher's ``--telemetry-port`` and
+``--arch phi3-medium-14b --shape prefill_32k|decode_32k`` is the
+counterpart of the reference launcher's full-config branch (which hands an
+LM cell to the dry run): it runs that cell's serving step on the card at
+``CONFIG`` widths, weights from ``torch.Generator`` seed 0 and tokens from
+numpy seed 0 (:func:`_lm_prefill`, :func:`_lm_decode`). ``--batch``,
+``--seq`` and ``--layers`` cut the cell, ``--kernels`` routes the prefill's
+attention; ``--smoke`` runs at the ``SMOKE`` widths (batch 2, 64 tokens by
+default) and takes ``--device cpu``. It prints wall, tokens/s, achieved
+TFLOP/s (``lm_model_flops`` plus ``lm_attention_correction``) and peak
+device GB. ``train_4k``, and ``--smoke`` without a serving shape (the
+reference's ``--smoke`` is a loss and its gradients), exit 2: LM training
+comes with its slice. ``long_500k`` is skipped for a full-attention arch,
+with the reference's reason.
+
+Exit status 0 iff every check passes (or the cell is skipped); 2 for an
+arch that is neither a GNN arch, ``two-tower-retrieval`` nor an LM arch,
+for a GNN arch without ``--offload``, for ``two-tower-retrieval`` without
+``--smoke`` (the reference's dry-run path is not ported) and for LM
+training. The reference launcher's ``--telemetry-port`` and
 ``--ledger`` options are not carried over yet (the live exporter and the
 run ledger are not ported).
 """
@@ -94,6 +109,263 @@ def _recsys_smoke(device=None) -> dict:
             torch.equal(grads[k], grads_r[k]) for k in grads),
         launches=launches, launches_ok=launches == want,
     )
+
+
+# LM arch ids -> their configuration module (``CONFIG``, ``SMOKE``)
+LM_ARCHS = {"phi3-medium-14b": "repro_torch.configs.phi3_medium_14b"}
+LM_TRAINING = "LM training comes with its slice of the port"
+# the prefill's warm-up length and the decode steps after the filled cache
+LM_WARMUP_SEQ = 1024
+LM_DECODE_STEPS = 32
+# --smoke's default cut of a serving cell
+LM_SMOKE_BATCH = 2
+LM_SMOKE_SEQ = 64
+
+
+def lm_cell_skip(cfg, shape: str) -> Optional[str]:
+    """Why a cell does not run for ``cfg`` (the reference's
+    ``make_lm_arch`` rule), or None."""
+    if shape == "long_500k" and not cfg.sub_quadratic:
+        return ("full-attention arch: long_500k requires sub-quadratic "
+                "attention (DESIGN.md §4)")
+    return None
+
+
+def _peak_gb(dev) -> float:
+    import torch
+
+    return (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else 0.0)
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _reset_peak(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _profiled(fn, dev, top: int = 12) -> str:
+    """One call of ``fn`` under ``torch.profiler`` (CPU and, on the card,
+    CUDA activities): the wall of the window, the device's busy share in
+    it (the kernels' summed device time over the wall) and the ``top``
+    operators by self device time (self CPU time on the CPU)."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts):    # the tracer's start-up, outside
+        torch.ones(1, device=dev).add_(1)
+        _sync(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        fn()
+        _sync(dev)
+    wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    if dev.type != "cuda":
+        return (f"profile: wall {wall * 1e3:.3f} ms\n"
+                + ka.table(sort_by="self_cpu_time_total", row_limit=top))
+    busy = sum(e.self_device_time_total for e in ka
+               if e.device_type == DeviceType.CUDA) / 1e6
+    return (f"profile: wall {wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f}"
+            f" ms ({busy / wall:.1%})\n"
+            + ka.table(sort_by="self_device_time_total", row_limit=top))
+
+
+def _lm_prefill(model, batch: int, seq: int, kernels: str = "kernel",
+                warmup_seq: int = LM_WARMUP_SEQ, seed: int = 0,
+                profile: bool = False) -> dict:
+    """One timed ``make_prefill_step`` call on ``model``'s device: tokens
+    ``(batch, seq)`` uniform from numpy ``seed``, after a warm-up call on
+    their first ``warmup_seq`` tokens (0: none). Returns the wall (host
+    clock, ending in a synchronise), tokens/s, achieved TFLOP/s
+    (``lm_model_flops`` + ``lm_attention_correction``), peak device GB of
+    the timed call, its ``flash_attention`` launches, ``finite`` and the
+    last-position ``logits``; with ``profile``, one more call under
+    :func:`_profiled` (``profile``)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import (
+        lm_attention_correction, lm_model_flops,
+    )
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.lm.steps import make_prefill_step
+
+    cfg, dev = model.cfg, model.device
+    step = make_prefill_step(cfg, kernels, dev)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (batch, seq)).astype(np.int32)).to(dev)
+    if warmup_seq:
+        step(model, toks[:, :warmup_seq])
+    _reset_peak(dev)
+    before = launch_counts()["flash_attention"]
+    t0 = time.perf_counter()
+    logits = step(model, toks)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()["flash_attention"] - before
+    flops = (lm_model_flops(cfg, "prefill", batch, seq)
+             + lm_attention_correction(cfg, "prefill", batch, seq)["flops"])
+    out = dict(
+        batch=batch, seq=seq, kernels=kernels, wall_s=wall,
+        tokens_per_s=batch * seq / wall, tflops=flops / wall / 1e12,
+        peak_gb=_peak_gb(dev), launches=launches,
+        finite=bool(torch.isfinite(logits).all()), logits=logits,
+    )
+    if profile:
+        out["profile"] = _profiled(lambda: step(model, toks), dev)
+    return out
+
+
+def _lm_decode(model, batch: int, seq: int, steps: int = LM_DECODE_STEPS,
+               kernels: str = "kernel", seed: int = 0,
+               profile: bool = False) -> dict:
+    """``steps`` greedy ``make_decode_step`` calls on ``model``'s device
+    against a ``seq``-position KV cache whose first ``seq - steps``
+    positions hold normals from a ``torch.Generator`` seeded with ``seed``
+    (a stand-in for a prefilled prompt), so the steps fill the last
+    positions. The first token is uniform from numpy ``seed``, each next
+    one the argmax of the step's logits. Returns per-step walls (host
+    clock around the step and its argmax, ending in a synchronise), p50 /
+    p99 ms, tokens/s at p50, TFLOP/s at p50 (``lm_model_flops``), peak
+    device GB over the steps (cache included), ``finite``, the tokens;
+    with ``profile``, the last step once more (the same position) under
+    :func:`_profiled` (``profile``)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import lm_model_flops
+    from repro_torch.models.lm.steps import make_decode_step
+    from repro_torch.models.lm.transformer import init_kv_cache
+
+    cfg, dev = model.cfg, model.device
+    if not 1 <= steps <= seq:
+        raise ValueError(f"steps={steps} outside [1, seq={seq}]")
+    fill = seq - steps
+    _reset_peak(dev)
+    cache = init_kv_cache(cfg, batch, seq, device=dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    for name in ("k", "v"):
+        for i in range(cfg.n_layers):
+            cache[name][i, :, :fill].copy_(torch.randn(
+                (batch, fill, cfg.n_kv_heads, cfg.d_head), generator=gen,
+                device=dev))
+    step = make_decode_step(cfg, kernels, dev)
+    tok = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (batch, 1)).astype(np.int32)).to(dev)
+    walls, tokens, finite = [], [], True
+    _sync(dev)
+    for t in range(steps):
+        t0 = time.perf_counter()
+        logits, cache = step(model, cache, tok, fill + t + 1)
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        _sync(dev)
+        walls.append(time.perf_counter() - t0)
+        finite &= bool(torch.isfinite(logits).all())
+        tokens.append(tok[:, 0].tolist())
+    p50 = float(np.percentile(walls, 50))
+    out = dict(
+        batch=batch, seq=seq, steps=steps, walls_s=walls,
+        p50_ms=p50 * 1e3, p99_ms=float(np.percentile(walls, 99)) * 1e3,
+        tokens_per_s=batch / p50,
+        tflops=lm_model_flops(cfg, "decode", batch, seq) / p50 / 1e12,
+        peak_gb=_peak_gb(dev), finite=finite, tokens=tokens,
+    )
+    if profile:
+        out["profile"] = _profiled(lambda: step(model, cache, tok, seq), dev)
+    return out
+
+
+def _lm_main(args) -> int:
+    """The LM branch of :func:`main`; returns the exit status."""
+    import dataclasses
+    import importlib
+
+    import torch
+
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.device import resolve_device
+    from repro_torch.models.lm.transformer import init_lm_params
+
+    if args.offload:
+        print(f"{args.arch}: --offload requires a GNN arch")
+        return 2
+    if args.shape is None:
+        what = ("--smoke without --shape is the reference's loss and "
+                "gradients" if args.smoke else "no --shape given")
+        print(f"{args.arch}: {what}; {LM_TRAINING} (serving: --shape "
+              f"prefill_32k or decode_32k)")
+        return 2
+    if args.shape not in LM_SHAPES:
+        print(f"{args.arch}: unknown shape {args.shape!r} "
+              f"(one of {sorted(LM_SHAPES)})")
+        return 2
+    cell = LM_SHAPES[args.shape]
+    if cell["kind"] == "train":
+        print(f"{args.arch} {args.shape}: {LM_TRAINING}")
+        return 2
+    mod = importlib.import_module(LM_ARCHS[args.arch])
+    cfg = mod.SMOKE if args.smoke else mod.CONFIG
+    skip = lm_cell_skip(cfg, args.shape)
+    if skip:
+        print(f"{args.arch} {args.shape}: skipped: {skip}")
+        return 0
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    batch = args.batch or (LM_SMOKE_BATCH if args.smoke else cell["batch"])
+    seq = args.seq or (LM_SMOKE_SEQ if args.smoke else cell["seq"])
+    dev = resolve_device(args.device)
+    model = init_lm_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    print(f"{args.arch} {args.shape}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.dtype}, batch {batch}, seq {seq}, kernels "
+          f"{args.kernels}, on {dev}", flush=True)
+    if cell["kind"] == "prefill":
+        r = _lm_prefill(model, batch, seq, args.kernels,
+                        warmup_seq=min(LM_WARMUP_SEQ, seq),
+                        profile=args.profile)
+        want = cfg.n_layers if (args.kernels == "kernel"
+                                and dev.type == "cuda") else 0
+        line = (f"  wall {r['wall_s']:.3f} s, {r['tokens_per_s']:.1f} "
+                f"tokens/s")
+        ok = r["finite"] and r["launches"] == want
+        tail = (f"flash_attention launches {r['launches']} (want {want}), "
+                f"finite {r['finite']}")
+    else:
+        r = _lm_decode(model, batch, seq, min(LM_DECODE_STEPS, seq),
+                       args.kernels, profile=args.profile)
+        line = (f"  {r['steps']} steps: p50 {r['p50_ms']:.3f} ms, p99 "
+                f"{r['p99_ms']:.3f} ms a step, {r['tokens_per_s']:.1f} "
+                f"tokens/s")
+        ok = r["finite"]
+        tail = f"finite {r['finite']}"
+    if dev.type == "cuda":
+        line += (f", {r['tflops']:.3f} TFLOP/s, peak device "
+                 f"{r['peak_gb']:.2f} GB")
+    print(f"{line}, {tail}")
+    if args.profile:
+        print(r["profile"])
+    return 0 if ok else 1
 
 
 # the dense oracle check (float64 oracle): loss and max-relative gradients
@@ -299,8 +571,8 @@ def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
                     help="a GNN arch id (e.g. gcn-cora; the model family "
-                         "is recovered from the config naming convention) "
-                         "or two-tower-retrieval")
+                         "is recovered from the config naming convention), "
+                         "two-tower-retrieval or phi3-medium-14b")
     ap.add_argument("--offload", action="store_true",
                     help="run the storage-offloading engine smoke (GNN "
                          "archs; uses the SSO pipeline runtime)")
@@ -318,13 +590,37 @@ def main(argv: Optional[Sequence[str]] = None):
                          "the --offload run (open in ui.perfetto.dev)")
     ap.add_argument("--smoke", action="store_true",
                     help="one loss and gradient of a recsys arch at its "
-                         "SMOKE widths on the card")
+                         "SMOKE widths on the card; with an LM --shape, "
+                         "that cell at the LM's SMOKE widths")
+    ap.add_argument("--shape", default=None,
+                    help="an LM cell: prefill_32k or decode_32k (train_4k "
+                         "waits for LM training; long_500k is skipped for "
+                         "full-attention archs)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="LM cells: batch (default: the cell's)")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="LM cells: sequence / cache length (default: the "
+                         "cell's)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="LM cells: depth (default: the config's)")
+    ap.add_argument("--kernels", default="kernel",
+                    choices=("kernel", "reference"),
+                    help="LM cells: the prefill's attention route")
+    ap.add_argument("--profile", action="store_true",
+                    help="LM cells: one more prefill call / decode step "
+                         "under torch.profiler; prints the device's busy "
+                         "share and the top operators")
+    ap.add_argument("--device", default=None,
+                    help="LM cells: the device (default: the CUDA card; "
+                         "'cpu' for a CPU run)")
     args = ap.parse_args(argv)
     if args.trace:
         import logging
         logging.basicConfig(level=logging.INFO,
                             format="%(name)s %(message)s")
 
+    if args.arch in LM_ARCHS:
+        sys.exit(_lm_main(args))
     if args.arch in RECSYS_ARCHS:
         if args.offload or not args.smoke:
             print(f"{args.arch}: only --smoke is ported for recsys archs "
@@ -336,7 +632,8 @@ def main(argv: Optional[Sequence[str]] = None):
         sys.exit(0 if ok else 1)
     if args.arch not in GNN_ARCHS:
         print(f"{args.arch}: training requires a GNN arch "
-              f"(one of {sorted(GNN_ARCHS)}) or one of {sorted(RECSYS_ARCHS)}")
+              f"(one of {sorted(GNN_ARCHS)}), one of {sorted(RECSYS_ARCHS)} "
+              f"or one of {sorted(LM_ARCHS)}")
         sys.exit(2)
     model = GNN_ARCHS[args.arch]
     if not args.offload:

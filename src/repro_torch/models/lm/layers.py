@@ -1,11 +1,53 @@
-"""Shared dense-layer initialisation (the reference's
-``models/lm/layers.py``; the rest of that module comes with the LM port)."""
+"""Transformer building blocks (the reference's ``models/lm/layers.py``):
+RMSNorm, RoPE, SwiGLU and the dense-layer initialisation."""
 from __future__ import annotations
 
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * scale`` over the last axis, in float32
+    inside, cast back to ``x``'s dtype."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+def rope_freqs(d_head: int, theta: float = 10000.0) -> torch.Tensor:
+    """The ``d_head / 2`` inverse frequencies, computed in numpy float32 as
+    the reference computes them (so the bits are the reference's)."""
+    inv = 1.0 / (theta ** (np.arange(0, d_head, 2, dtype=np.float32) / d_head))
+    return torch.from_numpy(np.ascontiguousarray(inv))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding in the half-split layout (the first half of the
+    head's features pairs with the second half, not even with odd).
+    ``x`` ``(..., S, H, D)``; ``positions`` broadcastable to ``(..., S)``."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta).to(x.device)
+    ang = positions[..., :, None, None].float() * inv   # (..., S, 1, D/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """LLaMA-style gated FFN, ``(silu(x W_gate) * x W_up) W_down``. Weights:
+    ``(d, ff)``, ``(d, ff)``, ``(ff, d)``."""
+    g = torch.matmul(x, w_gate)
+    u = torch.matmul(x, w_up)
+    return torch.matmul(F.silu(g) * u, w_down)
 
 
 def init_dense(generator: torch.Generator, shape: Sequence[int],

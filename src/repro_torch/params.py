@@ -1,5 +1,6 @@
 """Weight converters between the reference (JAX) parameter pytrees and the
-port's layers, both ways, for the six GNN families and the two-tower model.
+port's layers, both ways, for the six GNN families, the two-tower model and
+the dense LM.
 
 The tests use them to hand both packages the same weights and to compare
 gradients and trained weights; ``chip_smoke.py`` never imports JAX and
@@ -18,6 +19,14 @@ its key set, or named with ``model=``.
 The two-tower model keeps the reference's layout: its tables and its
 towers' ``w (in, out)`` / ``b`` are parameters of the same shapes and names
 (``user_mlp.<i>.w`` for ``params["user_mlp"][i]["w"]``).
+
+The LM keeps the reference's einsum layouts too; the reference stacks the
+layers' parameters along a leading L axis (``params["layers"]["attn"]["wq"]``
+is ``(L, d, H, Dh)``), the port holds one :class:`~repro_torch.models.lm.
+transformer.LMBlock` per layer (``layers.<i>.wq``), so the converters
+unstack and stack that axis. bf16 arrays travel as numpy's ``bfloat16``
+(``ml_dtypes``, the type ``np.asarray`` gives a JAX bf16 array), bit for
+bit.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.gnn.layers import GNN_REGISTRY
+from repro_torch.models.lm.transformer import LM, LMConfig
 from repro_torch.models.recsys.two_tower import TwoTower
 
 # family -> ((reference key, port attribute, dense?), ...), in the port
@@ -209,3 +219,75 @@ def two_tower_grads_to_jax(grads: Dict[str, torch.Tensor]) -> Dict:
     """The port's ``{parameter name: gradient}`` (``two_tower_value_and_grad``)
     -> the reference's numpy params layout."""
     return _two_tower_np(grads.__getitem__, _tower_depths(grads))
+
+
+# LMBlock attribute -> its key path in the reference's params["layers"]
+LM_LAYER_KEYS: Dict[str, Tuple[str, ...]] = {
+    "attn_norm": ("attn_norm",), "ffn_norm": ("ffn_norm",),
+    "wq": ("attn", "wq"), "wk": ("attn", "wk"), "wv": ("attn", "wv"),
+    "wo": ("attn", "wo"),
+    "w_gate": ("ffn", "w_gate"), "w_up": ("ffn", "w_up"),
+    "w_down": ("ffn", "w_down"),
+}
+LM_TOP_KEYS = ("embed", "final_norm", "lm_head")
+
+
+def _np_tensor(a, dtype: torch.dtype, what: str) -> torch.Tensor:
+    """A numpy array (float32, or ``bfloat16`` as numpy holds JAX's bf16)
+    as a CPU tensor of ``dtype``, bit for bit; another dtype raises."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    if t.dtype != dtype:
+        raise ValueError(f"{what} is {a.dtype}, the config wants {dtype}")
+    return t
+
+
+def _tensor_np(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+    return t.numpy().copy()
+
+
+def lm_from_jax(params_np: Dict, cfg: LMConfig,
+                device: DeviceLike = None) -> LM:
+    """The reference's dense LM params (``embed``, ``layers`` stacked along
+    L, ``final_norm``, ``lm_head``; numpy arrays in ``cfg.dtype``) -> an
+    :class:`LM` on ``device``, each layer one slice of the L axis."""
+    model = LM(cfg, device)
+    with torch.no_grad():
+        for k in LM_TOP_KEYS:
+            getattr(model, k).copy_(_np_tensor(params_np[k], cfg.dtype, k))
+        for attr, path in LM_LAYER_KEYS.items():
+            a = params_np["layers"]
+            for key in path:
+                a = a[key]
+            if np.shape(a)[0] != cfg.n_layers:
+                raise ValueError(f"layers.{'.'.join(path)} has "
+                                 f"{np.shape(a)[0]} layers, the config "
+                                 f"{cfg.n_layers}")
+            full = _np_tensor(a, cfg.dtype, ".".join(path))
+            for i, blk in enumerate(model.layers):
+                getattr(blk, attr).copy_(full[i])
+    return model
+
+
+def lm_to_numpy(model: LM) -> Dict:
+    """An :class:`LM` -> the reference's params layout, the layers stacked
+    along L (the inverse of :func:`lm_from_jax`)."""
+    out = {k: _tensor_np(getattr(model, k)) for k in LM_TOP_KEYS}
+    layers: Dict = {"attn": {}, "ffn": {}}
+    for attr, path in LM_LAYER_KEYS.items():
+        stacked = np.stack([_tensor_np(getattr(blk, attr))
+                            for blk in model.layers])
+        node = layers
+        for key in path[:-1]:
+            node = node[key]
+        node[path[-1]] = stacked
+    out["layers"] = layers
+    return out

@@ -1,5 +1,5 @@
-"""The CUDA kernels (gather/scatter, edge softmax, embedding bag) on the
-card, against the numpy oracles and their plain versions.
+"""The CUDA kernels (gather/scatter, edge softmax, embedding bag, flash
+attention) on the card, against the numpy oracles and their plain versions.
 
 Marked ``cuda``: they skip where there is no CUDA device (the kernels have
 no CPU mode; the CPU tests cover the plain versions). This file imports
@@ -15,6 +15,8 @@ from repro_torch.kernels.edge_softmax import ops as es_ops
 from repro_torch.kernels.edge_softmax import ref as es_ref
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.embedding_bag import ref as eb_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.gather_scatter import ops, ref
 
 
@@ -302,3 +304,98 @@ def test_cuda_embedding_bag_refuses_bad_inputs(cuda_dev):
         eb_ops.embedding_bag(t, ids, "max")
     assert eb_ops.embedding_bag(t, ids[:0]).shape == (0, 4)
     assert eb_ops.LAUNCHES["embedding_bag"] == before
+
+
+# ---------------------------------------------------------------- flash
+def _fa_inputs(rng, B, Sq, Skv, Hq, Hkv, D):
+    return (rng.standard_normal((B, Sq, Hq, D), dtype=np.float32),
+            rng.standard_normal((B, Skv, Hkv, D), dtype=np.float32),
+            rng.standard_normal((B, Skv, Hkv, D), dtype=np.float32))
+
+
+# the JAX kernel tests' grid (tests/test_kernels.py), a ragged S, Sq != Skv
+# both ways, D 64 and the LM smoke's D 8
+FA_SHAPES = [(1, 128, 128, 4, 4, 32), (2, 256, 256, 8, 2, 64),
+             (1, 512, 512, 4, 1, 128), (1, 200, 200, 4, 2, 128),
+             (1, 96, 200, 8, 2, 64), (1, 200, 160, 4, 2, 64),
+             (2, 40, 40, 8, 2, 8)]
+FA_MASKS = [(True, None), (True, 64), (False, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", FA_MASKS)
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D", FA_SHAPES)
+def test_cuda_flash_attention_f32_vs_float64_oracle(cuda_dev, B, Sq, Skv, Hq,
+                                                    Hkv, D, causal, window,
+                                                    rng):
+    if window is not None and Sq > Skv + window - 1:
+        pytest.skip("a row with no key: refused (see the refusal test)")
+    q, k, v = _fa_inputs(rng, B, Sq, Skv, Hq, Hkv, D)
+    before = fa_ops.LAUNCHES["flash_attention"]
+    got = fa_ops.flash_attention(*_on(cuda_dev, q, k, v), causal, window)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES["flash_attention"] == before + 1
+    want = fa_ref.attention_np(q, k, v, causal, window)
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", FA_MASKS)
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D", FA_SHAPES)
+def test_cuda_flash_attention_bf16_within_one_ulp_of_plain(
+    cuda_dev, B, Sq, Skv, Hq, Hkv, D, causal, window, rng,
+):
+    if window is not None and Sq > Skv + window - 1:
+        pytest.skip("a row with no key: refused (see the refusal test)")
+    q, k, v = (t.to(torch.bfloat16) for t in
+               _on(cuda_dev, *_fa_inputs(rng, B, Sq, Skv, Hq, Hkv, D)))
+    got = fa_ops.flash_attention(q, k, v, causal, window)
+    plain = fa_ref.flash_attention_ref(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert fa_ref.within_one_bf16_ulp(got, plain)
+    assert torch.equal(fa_ops.flash_attention(q, k, v, causal, window), got)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_gqa_head_order(cuda_dev, rng):
+    """Query head h reads KV head h // G: each KV head's keys, alone, give
+    its G query heads' output."""
+    B, S, Hq, Hkv, D = 1, 130, 6, 3, 32
+    q, k, v = _on(cuda_dev, *_fa_inputs(rng, B, S, S, Hq, Hkv, D))
+    got = fa_ops.flash_attention(q, k, v)
+    G = Hq // Hkv
+    for h in range(Hq):
+        one = fa_ops.flash_attention(
+            q[:, :, h:h + 1].contiguous(),
+            k[:, :, h // G:h // G + 1].contiguous(),
+            v[:, :, h // G:h // G + 1].contiguous())
+        torch.testing.assert_close(one[:, :, 0], got[:, :, h], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_bad_inputs(cuda_dev):
+    q = torch.zeros(1, 8, 4, 16, device=cuda_dev)
+    k = torch.zeros(1, 8, 2, 16, device=cuda_dev)
+    before = fa_ops.LAUNCHES["flash_attention"]
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q, k.to(torch.bfloat16), k)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q.double(), k.double(), k.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention(q, k.transpose(1, 2).contiguous().transpose(
+            1, 2), k)
+    with pytest.raises(ValueError, match="multiple"):
+        fa_ops.flash_attention(torch.zeros(1, 8, 3, 16, device=cuda_dev), k,
+                               k)
+    with pytest.raises(ValueError, match="on"):
+        fa_ops.flash_attention(q, k.cpu(), k)
+    with pytest.raises(ValueError, match="on"):
+        fa_ops.flash_attention(q.cpu(), k, k)
+    with pytest.raises(ValueError, match="D=160"):
+        z = torch.zeros(1, 8, 2, 160, device=cuda_dev)
+        fa_ops.flash_attention(z, z, z)
+    with pytest.raises(ValueError, match="no key"):
+        fa_ops.flash_attention(torch.zeros(1, 20, 4, 16, device=cuda_dev),
+                               k, k, causal=False, window=4)
+    assert fa_ops.LAUNCHES["flash_attention"] == before

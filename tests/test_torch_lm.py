@@ -1,0 +1,397 @@
+"""The port's dense LM (``repro_torch.models.lm``, ``configs``, the LM
+converters in ``params``, the launcher's LM branch) against the reference
+package on the CPU, on the same numpy inputs and converted weights.
+
+The JAX functions run as the JAX tests run them; the port runs with
+``device="cpu"``, so its ``flash_attention`` wrapper takes the kernel's
+plain version."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jax_base
+from repro.configs.phi3_medium_14b import CONFIG as JAX_CONFIG
+from repro.configs.phi3_medium_14b import SMOKE as JAX_SMOKE
+from repro.models.lm import attention as jax_attn
+from repro.models.lm import layers as jax_layers
+from repro.models.lm import transformer as jax_tf
+from repro_torch.configs import base
+from repro_torch.configs.phi3_medium_14b import CONFIG, SMOKE
+from repro_torch.kernels import launch_counts, reset_launches
+from repro_torch.models.lm import attention, layers, transformer
+from repro_torch.models.lm.steps import make_decode_step, make_prefill_step
+from repro_torch.params import lm_from_jax, lm_to_numpy
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+def _jax_cfg(**kw):
+    return dataclasses.replace(JAX_SMOKE, **kw)
+
+
+def _port_cfg(**kw):
+    return dataclasses.replace(SMOKE, **kw)
+
+
+def _models(seed=0, jkw=None, tkw=None):
+    """The reference's SMOKE params (JAX key ``seed``) and the port's
+    model made from them."""
+    jcfg, tcfg = _jax_cfg(**(jkw or {})), _port_cfg(**(tkw or {}))
+    params = _np(jax_tf.init_lm_params(jax.random.PRNGKey(seed), jcfg))
+    return jcfg, tcfg, params, lm_from_jax(params, tcfg, "cpu")
+
+
+def _tokens(seed, B, S, vocab=SMOKE.vocab):
+    return np.random.default_rng(seed).integers(0, vocab, (B, S)).astype(
+        np.int32)
+
+
+# ------------------------------------------------------------------ config
+
+def test_config_counts_equal_the_reference():
+    assert CONFIG.param_count() == JAX_CONFIG.param_count() == 14_659_502_080
+    assert CONFIG.active_param_count() == JAX_CONFIG.active_param_count()
+    assert SMOKE.param_count() == JAX_SMOKE.param_count()
+    assert base.LM_SHAPES == jax_base.LM_SHAPES
+    for shape, s in base.LM_SHAPES.items():
+        for cfg, jcfg in ((CONFIG, JAX_CONFIG), (SMOKE, JAX_SMOKE)):
+            args = (s["kind"], s["batch"], s["seq"])
+            assert base.lm_model_flops(cfg, *args) == \
+                jax_base.lm_model_flops(jcfg, *args)
+            assert base.lm_attention_correction(cfg, *args) == \
+                jax_base.lm_attention_correction(jcfg, *args)
+    win = dataclasses.replace(CONFIG, window=4096)
+    jwin = dataclasses.replace(JAX_CONFIG, window=4096)
+    for kind in ("prefill", "decode", "train"):
+        assert base.lm_model_flops(win, kind, 2, 32768) == \
+            jax_base.lm_model_flops(jwin, kind, 2, 32768)
+        assert base.lm_attention_correction(win, kind, 2, 32768) == \
+            jax_base.lm_attention_correction(jwin, kind, 2, 32768)
+
+
+def test_config_widths_are_the_reference():
+    for f in ("name", "n_layers", "d_model", "n_heads", "n_kv_heads",
+              "d_head", "d_ff", "vocab", "attn_type", "window", "rope_theta",
+              "q_chunk", "kv_chunk"):
+        assert getattr(CONFIG, f) == getattr(JAX_CONFIG, f), f
+        assert getattr(SMOKE, f) == getattr(JAX_SMOKE, f), f
+    assert CONFIG.dtype == torch.bfloat16 and SMOKE.dtype == torch.float32
+    assert SMOKE.q_chunk == SMOKE.kv_chunk == 16
+
+
+def test_unported_variants_raise():
+    with pytest.raises(NotImplementedError, match="DeepSeek-V2"):
+        _port_cfg(attn_type="mla")
+    with pytest.raises(NotImplementedError, match="Mixtral"):
+        _port_cfg(moe=object())
+    with pytest.raises(ValueError, match="multiple"):
+        _port_cfg(n_kv_heads=3)
+
+
+# ------------------------------------------------------------------ layers
+
+def test_rope_freqs_bitwise():
+    for d in (8, 64, 128):
+        np.testing.assert_array_equal(
+            layers.rope_freqs(d, 1e4).numpy(),
+            np.asarray(jax_layers.rope_freqs(d, 1e4)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_rope_swiglu_match_jax(dtype):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 12, 32)).astype(np.float32)
+    scale = rng.standard_normal(32).astype(np.float32)
+    xh = rng.standard_normal((2, 12, 4, 16)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(12) + 3, (2, 12)).astype(np.int32)
+    ws = [rng.standard_normal(s).astype(np.float32) / 6
+          for s in ((32, 48), (32, 48), (48, 32))]
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+
+    def j(*a):
+        return [jnp.asarray(v).astype(jd) for v in a]
+
+    def t(*a):
+        return [v.to(td) for v in _t(*a)]
+
+    def f32(a):
+        return np.asarray(a, np.float32) if not isinstance(a, torch.Tensor) \
+            else a.float().numpy()
+
+    np.testing.assert_allclose(
+        f32(layers.rmsnorm(*t(x, scale))),
+        f32(jax_layers.rmsnorm(*j(x, scale)).astype(jnp.float32)),
+        rtol=tol, atol=tol)
+    np.testing.assert_allclose(
+        f32(layers.apply_rope(t(xh)[0], torch.from_numpy(pos), 1e4)),
+        f32(jax_layers.apply_rope(j(xh)[0], jnp.asarray(pos),
+                                  1e4).astype(jnp.float32)),
+        rtol=tol, atol=tol)
+    np.testing.assert_allclose(
+        f32(layers.swiglu(*t(x, *ws))),
+        f32(jax_layers.swiglu(*j(x, *ws)).astype(jnp.float32)),
+        rtol=tol, atol=tol)
+
+
+def test_rope_is_half_split():
+    """Feature i pairs with feature i + D/2 (not 2i with 2i + 1)."""
+    x = torch.zeros(1, 1, 1, 8)
+    x[..., 0] = 1.0
+    out = layers.apply_rope(x, torch.tensor([[1]]))
+    assert out[..., 4].item() == pytest.approx(np.sin(1.0), abs=1e-6)
+    assert out[..., 1].item() == 0.0
+
+
+# ------------------------------------------------------------------ attention
+
+@pytest.mark.parametrize("s,window,qc", [(32, None, 8), (64, 16, 16),
+                                         (64, None, 32), (128, 16, 32)])
+def test_chunked_attention_matches_jax(s, window, qc):
+    rng = np.random.default_rng(1)
+    B, Hq, Hkv, D = 2, 4, 2, 16
+    q = rng.standard_normal((B, s, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, s, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, s, Hkv, D)).astype(np.float32)
+    want = np.asarray(jax_attn.chunked_attention(
+        *map(jnp.asarray, (q, k, v)), causal=True, window=window,
+        q_chunk=qc, kv_chunk=qc))
+    got = attention.chunked_attention(*_t(q, k, v), causal=True,
+                                      window=window, q_chunk=qc, kv_chunk=qc)
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-5, atol=3e-5)
+    # the kernel route (its plain version on the CPU) computes the same
+    routed = attention.attention(*_t(q, k, v), window=window,
+                                 kernels="kernel")
+    np.testing.assert_allclose(routed.numpy(), want, rtol=3e-5, atol=3e-5)
+
+
+def test_chunked_attention_refuses_ragged_chunks_and_unknown_modes():
+    q = torch.zeros(1, 24, 2, 8)
+    with pytest.raises(ValueError, match="multiples"):
+        attention.chunked_attention(q, q, q, q_chunk=16, kv_chunk=16)
+    with pytest.raises(ValueError, match="kernels"):
+        attention.attention(q, q, q, kernels="fast")
+
+
+@pytest.mark.parametrize("window,cache_len", [(None, 1), (None, 13),
+                                              (8, 20), (None, 24)])
+def test_decode_attention_matches_jax(window, cache_len):
+    rng = np.random.default_rng(2)
+    B, S, Hq, Hkv, D = 2, 24, 8, 2, 16
+    q = rng.standard_normal((B, 1, Hq, D)).astype(np.float32)
+    kc = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    vc = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    want = np.asarray(jax_attn.decode_attention(
+        *map(jnp.asarray, (q, kc, vc)), jnp.int32(cache_len), window=window))
+    got = attention.decode_attention(*_t(q, kc, vc), cache_len,
+                                     window=window)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+# ------------------------------------------------------------------ the model
+
+@pytest.mark.parametrize("kernels", ["kernel", "reference"])
+def test_lm_forward_smoke_f32_matches_jax(kernels):
+    jcfg, tcfg, params, model = _models()
+    toks = _tokens(0, 2, 32)
+    want, _ = jax_tf.lm_forward(params, jnp.asarray(toks), jcfg)
+    reset_launches()
+    got, aux = transformer.lm_forward(model, torch.from_numpy(toks), kernels)
+    assert not any(launch_counts().values())
+    assert aux == 0.0 and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_lm_forward_smoke_bf16_matches_jax():
+    """bf16 weights and residual stream: the two frameworks round at other
+    places (matmul outputs, silu, RoPE), so the logits agree to 3e-2 of
+    their largest magnitude (measured: ~1.0e-2)."""
+    jcfg, tcfg, params, model = _models(
+        jkw=dict(dtype=jnp.bfloat16), tkw=dict(dtype=torch.bfloat16))
+    toks = _tokens(1, 2, 32)
+    want = np.asarray(jax_tf.lm_forward(params, jnp.asarray(toks), jcfg)[0])
+    got, _ = transformer.lm_forward(model, torch.from_numpy(toks))
+    err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+    assert err < 3e-2, err
+
+
+def test_kernel_mode_equals_reference_mode_on_cpu():
+    _, tcfg, _, model = _models(seed=3)
+    toks = torch.from_numpy(_tokens(2, 2, 48))
+    a, _ = transformer.lm_forward(model, toks, "kernel")
+    b, _ = transformer.lm_forward(model, toks, "reference")
+    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_prefill_step_is_the_references_last_logits():
+    jcfg, tcfg, params, model = _models(seed=4)
+    toks = _tokens(3, 3, 32)
+    full, _ = jax_tf.lm_forward(params, jnp.asarray(toks), jcfg)
+    for kernels in ("kernel", "reference"):
+        got = make_prefill_step(tcfg, kernels, "cpu")(
+            model, torch.from_numpy(toks))
+        assert got.shape == (3, tcfg.vocab)
+        np.testing.assert_allclose(got.numpy(), np.asarray(full)[:, -1],
+                                   rtol=1e-5, atol=1e-5)
+        # the port's own full logits in the same mode, last position
+        mine, _ = transformer.lm_forward(model, torch.from_numpy(toks),
+                                         kernels)
+        np.testing.assert_allclose(got.numpy(), mine[:, -1].numpy(),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_decode_steps_match_jax_with_equal_caches():
+    jcfg, tcfg, params, model = _models(seed=5)
+    B, T = 2, 12
+    toks = _tokens(4, B, T)
+    jcache = jax_tf.init_kv_cache(jcfg, B, T + 4)
+    cache = transformer.init_kv_cache(tcfg, B, T + 4, device="cpu")
+    step = make_decode_step(tcfg, "kernel", "cpu")
+    for t in range(T):
+        want, jcache = jax_tf.lm_decode_step(
+            params, jcache, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t + 1),
+            jcfg)
+        got, cache = step(model, cache, torch.from_numpy(toks[:, t:t + 1]),
+                          t + 1)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+        for name in ("k", "v"):
+            np.testing.assert_allclose(
+                cache[name].numpy(), np.asarray(jcache["scan"][name]),
+                rtol=1e-5, atol=1e-5)
+    assert not cache["k"][:, :, T:].any()         # untouched past the tokens
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_decode_equals_forward_roundtrip(window):
+    """The reference's decode == forward check (tests/test_lm.py), on the
+    port: each position's decode logits against the full forward's."""
+    jkw = dict(window=window, n_layers=2)
+    _, tcfg, _, model = _models(seed=6, jkw=jkw, tkw=jkw)
+    T = 16
+    toks = torch.from_numpy(_tokens(5, 1, T))
+    full, _ = transformer.lm_forward(model, toks)
+    cache = transformer.init_kv_cache(tcfg, 1, T, device="cpu")
+    outs = []
+    for t in range(T):
+        lg, cache = transformer.lm_decode_step(model, cache,
+                                               toks[:, t:t + 1], t + 1)
+        outs.append(lg)
+    dec = torch.stack(outs, dim=1)
+    err = float((dec - full).abs().max() / full.abs().max())
+    assert err < 2e-5, err
+
+
+def test_decode_step_refuses_a_position_outside_the_cache():
+    _, tcfg, _, model = _models(seed=7)
+    cache = transformer.init_kv_cache(tcfg, 1, 4, device="cpu")
+    tok = torch.zeros(1, 1, dtype=torch.int32)
+    for bad in (0, 5):
+        with pytest.raises(ValueError, match="cache_len"):
+            transformer.lm_decode_step(model, cache, tok, bad)
+
+
+def test_steps_refuse_another_config_or_device():
+    _, tcfg, _, model = _models(seed=8)
+    step = make_prefill_step(_port_cfg(n_layers=1), "kernel", "cpu")
+    with pytest.raises(ValueError, match="step"):
+        step(model, torch.zeros(1, 4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="kernels"):
+        make_decode_step(tcfg, "fast", "cpu")
+
+
+def test_init_lm_params_layouts_and_scales():
+    cfg = _port_cfg(d_model=256, d_ff=512, vocab=1024)
+    m = transformer.init_lm_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+    jshapes = jax.eval_shape(
+        lambda k: jax_tf.init_lm_params(k, _jax_cfg(
+            d_model=256, d_ff=512, vocab=1024)), jax.random.PRNGKey(0))
+    got = lm_to_numpy(m)
+    assert jax.tree.map(np.shape, got) == jax.tree.map(
+        lambda s: tuple(s.shape), jshapes)
+    blk = m.layers[0]
+    assert float(m.embed.std()) == pytest.approx(0.02, rel=0.05)
+    assert float(blk.wq.std()) == pytest.approx(256 ** -0.5, rel=0.05)
+    assert float(blk.wo.std()) == pytest.approx(64 ** -0.5, rel=0.05)
+    assert float(blk.w_down.std()) == pytest.approx(512 ** -0.5, rel=0.05)
+    assert torch.equal(m.final_norm, torch.ones(256))
+    assert not any(p.requires_grad for p in m.parameters())
+    assert sum(p.numel() for p in m.parameters()) == \
+        cfg.param_count() + cfg.d_model          # + the final norm
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_converters_round_trip_bitwise(dtype):
+    jcfg, tcfg, params, model = _models(
+        seed=9, jkw=dict(dtype=getattr(jnp, dtype)),
+        tkw=dict(dtype=getattr(torch, dtype)))
+    back = lm_to_numpy(model)
+    la, lb = jax.tree.leaves(back), jax.tree.leaves(params)
+    assert jax.tree.structure(back) == jax.tree.structure(params)
+    assert all(a.dtype == b.dtype and a.shape == b.shape
+               and a.tobytes() == b.tobytes() for a, b in zip(la, lb))
+    again = lm_from_jax(back, tcfg, "cpu")
+    assert all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+               for a, b in zip(again.parameters(), model.parameters()))
+    with pytest.raises(ValueError, match="config wants"):
+        lm_from_jax(params, _port_cfg(dtype=torch.float64), "cpu")
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.launch.train import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.LM(SMOKE)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_prefill_step(SMOKE)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_decode_step(SMOKE)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.init_kv_cache(SMOKE, 1, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--arch", "phi3-medium-14b", "--shape", "prefill_32k",
+              "--smoke"])
+    assert transformer.LM(SMOKE, device="cpu").device == torch.device("cpu")
+
+
+# ------------------------------------------------------------------ launcher
+
+@pytest.mark.parametrize("argv,code,say", [
+    (["--smoke"], 2, "LM training comes with its slice"),
+    (["--shape", "train_4k"], 2, "LM training comes with its slice"),
+    (["--shape", "train_4k", "--smoke"], 2,
+     "LM training comes with its slice"),
+    ([], 2, "no --shape"),
+    (["--shape", "nope"], 2, "unknown shape"),
+    (["--shape", "prefill_32k", "--offload"], 2, "requires a GNN arch"),
+    (["--shape", "long_500k"], 0,
+     "full-attention arch: long_500k requires sub-quadratic attention"),
+    (["--shape", "prefill_32k", "--smoke", "--device", "cpu", "--seq", "48"],
+     0, "wall"),
+    (["--shape", "prefill_32k", "--smoke", "--device", "cpu", "--kernels",
+      "reference", "--layers", "1"], 0, "1 layers"),
+    (["--shape", "decode_32k", "--smoke", "--device", "cpu", "--seq", "6"],
+     0, "6 steps"),
+    (["--shape", "decode_32k", "--smoke", "--device", "cpu", "--seq", "4",
+      "--profile"], 0, "profile: wall"),
+])
+def test_launcher_lm_exit_codes_on_cpu(argv, code, say, capsys):
+    from repro_torch.launch.train import main
+
+    with pytest.raises(SystemExit) as ei:
+        main(["--arch", "phi3-medium-14b", *argv])
+    assert ei.value.code == code
+    assert say in capsys.readouterr().out
