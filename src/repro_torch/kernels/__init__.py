@@ -18,12 +18,24 @@ kernels or to the reference path by mode and device.
   through ``scatter_add_``).
 - flash_attention: ``flash_attention`` (the LM prefill's causal /
   sliding-window GQA attention, online softmax in float32).
+- bsr_spmm: ``blockify_edges`` (COO edges to nonzero B x B blocks) and
+  ``bsr_spmm`` (block-sparse ``A @ X`` over them, float32 sums, zero rows
+  where a block row has no block). No engine path calls it, as in the
+  reference: ``chip_smoke.py`` applies it to the GCN main path's own
+  aggregate.
 
 :func:`launch_counts` reads every kernel's launches since the last
 :func:`reset_launches`.
 """
 from typing import Dict
 
+from repro_torch.kernels.bsr_spmm import ops as _bs_ops
+from repro_torch.kernels.bsr_spmm.ops import (
+    blockify_edges, bsr_spmm, bsr_spmm_kernel,
+)
+from repro_torch.kernels.bsr_spmm.ref import (
+    bsr_spmm_np, bsr_spmm_ref, spmm_edges_np, spmm_edges_ref,
+)
 from repro_torch.kernels.edge_softmax import ops as _es_ops
 from repro_torch.kernels.embedding_bag import ops as _eb_ops
 from repro_torch.kernels.edge_softmax.ops import EdgeSoftmax, edge_softmax
@@ -52,7 +64,7 @@ from repro_torch.kernels.gather_scatter.ref import (
 def launch_counts() -> Dict[str, int]:
     """Launches per kernel since the last :func:`reset_launches`."""
     return {**_gs_ops.LAUNCHES, **_es_ops.LAUNCHES, **_eb_ops.LAUNCHES,
-            **_fa_ops.LAUNCHES}
+            **_fa_ops.LAUNCHES, **_bs_ops.LAUNCHES}
 
 
 def reset_launches() -> None:
@@ -60,9 +72,12 @@ def reset_launches() -> None:
     _es_ops.reset_launches()
     _eb_ops.reset_launches()
     _fa_ops.reset_launches()
+    _bs_ops.reset_launches()
 
 
 __all__ = [
+    "blockify_edges", "bsr_spmm", "bsr_spmm_kernel", "bsr_spmm_np",
+    "bsr_spmm_ref", "spmm_edges_np", "spmm_edges_ref",
     "EdgeSoftmax", "EmbeddingBag", "edge_softmax", "embedding_bag",
     "flash_attention", "gather_aggregate", "gather_rows", "launch_counts",
     "reset_launches", "scatter_add_",

@@ -1,5 +1,5 @@
 """The CUDA kernels (gather/scatter, edge softmax, embedding bag, flash
-attention) on the card, against the numpy oracles and their plain versions.
+attention, block-sparse SpMM) on the card, against the numpy oracles and their plain versions.
 
 Marked ``cuda``: they skip where there is no CUDA device (the kernels have
 no CPU mode; the CPU tests cover the plain versions). This file imports
@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.bsr_spmm import ops as bs_ops
+from repro_torch.kernels.bsr_spmm import ref as bs_ref
 from repro_torch.kernels.edge_softmax import ops as es_ops
 from repro_torch.kernels.edge_softmax import ref as es_ref
 from repro_torch.kernels.embedding_bag import ops as eb_ops
@@ -399,3 +401,124 @@ def test_cuda_flash_attention_refuses_bad_inputs(cuda_dev):
         fa_ops.flash_attention(torch.zeros(1, 20, 4, 16, device=cuda_dev),
                                k, k, causal=False, window=4)
     assert fa_ops.LAUNCHES["flash_attention"] == before
+
+
+# ---------------------------------------------------------------- bsr_spmm
+# the JAX kernel tests' grid (tests/test_kernels.py), a ragged D, B 64 and 8
+BS_SHAPES = [(300, 2000, 64, 128), (700, 5000, 128, 128),
+             (128, 400, 96, 128), (513, 3000, 32, 128), (200, 900, 7, 128),
+             (150, 700, 20, 64), (40, 300, 70, 8)]
+
+
+def _bs_inputs(rng, n, E, D, block):
+    src = rng.integers(0, n, E)
+    dst = rng.integers(0, n, E)
+    w = rng.standard_normal(E).astype(np.float32)
+    a, rows, cols, nb = bs_ops.blockify_edges(src, dst, w, n, block=block)
+    x = rng.standard_normal((nb, block, D)).astype(np.float32)
+    return a, rows, cols, x, nb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,E,D,block", BS_SHAPES)
+def test_cuda_bsr_spmm_within_bound_of_plain(cuda_dev, n, E, D, block, dtype,
+                                             rng):
+    """float32: within ``(m_r + 1) * 2^-23 * (|A| |X|)_r`` (``m_r`` the
+    row's nonzero entries of A) of the plain version per element
+    (``bsr_spmm_tolerance``) and of the float64
+    oracle. bfloat16 x: within one bf16 ulp of plain, or within that
+    float32 term where it is larger (both sum in float32 and round once)."""
+    a, rows, cols, x, nb = _bs_inputs(rng, n, E, D, block)
+    a_d, r_d, c_d, x_d = _on(cuda_dev, a, rows, cols, x)
+    x_d = x_d.to(dtype)
+    before = bs_ops.LAUNCHES["bsr_spmm"]
+    got = bs_ops.bsr_spmm_kernel(a_d, r_d, c_d, x_d, nb)
+    torch.cuda.synchronize()
+    assert bs_ops.LAUNCHES["bsr_spmm"] == before + 1
+    assert got.dtype == dtype and got.shape == (nb, block, D)
+    plain = bs_ref.bsr_spmm_ref(a_d, r_d, c_d, x_d, nb)
+    tol = bs_ref.bsr_spmm_tolerance(a_d, r_d, c_d, x_d, nb)
+    err = (got.float() - plain.float()).abs()
+    if dtype == torch.float32:
+        assert bool(torch.all(err <= tol)), float((err - tol).max())
+        want = bs_ref.bsr_spmm_np(a, rows, cols, x, nb)
+        assert np.all(np.abs(got.cpu().numpy() - want) <= tol.cpu().numpy())
+    else:
+        assert bool(torch.all((fa_ref.bf16_ulp_distance(got, plain) <= 1)
+                              | (err <= tol)))
+
+
+@pytest.mark.cuda
+def test_cuda_bsr_spmm_empty_rows_are_zero(cuda_dev, rng):
+    """Destination block rows with no nonzero block come back 0 (the
+    reference's Pallas kernel leaves them unwritten): the reference fault's
+    repro at B 8, a wide one at B 128 with rows 0, 2 and the last empty,
+    and no block at all."""
+    src, dst = np.array([0, 9, 17, 3]), np.array([1, 2, 20, 21])
+    cases = [(src, dst, 32, 20, 8)]
+    src = rng.integers(0, 1024, 4000)
+    dst = rng.integers(0, 1024, 4000)
+    keep = ~np.isin(dst // 128, [0, 2, 7])
+    cases.append((src[keep], dst[keep], 1024, 200, 128))
+    cases.append((src[:0], dst[:0], 256, 64, 128))
+    for src, dst, n, D, block in cases:
+        w = rng.standard_normal(src.size).astype(np.float32)
+        a, rows, cols, nb = bs_ops.blockify_edges(src, dst, w, n, block=block)
+        x = rng.standard_normal((n, D)).astype(np.float32)
+        a_d, r_d, c_d, x_d = _on(cuda_dev, a, rows, cols, x)
+        got = bs_ops.bsr_spmm(x_d, a_d, r_d, c_d, nb, block=block)
+        torch.cuda.synchronize()
+        empty = np.setdiff1d(np.arange(nb), rows)
+        blocks = got.view(nb, block, D).cpu()
+        assert empty.size and not blocks[empty].any()
+        want = bs_ref.spmm_edges_np(src, dst, w, x, n)
+        tol = (np.bincount(dst, minlength=n)[:, None] + 1) * 2.0 ** -23 * \
+            bs_ref.spmm_edges_np(src, dst, np.abs(w), np.abs(x), n)
+        assert np.all(np.abs(got.cpu().numpy() - want) <= tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_bsr_spmm_rerun_bitwise(cuda_dev, dtype, rng):
+    a, rows, cols, x, nb = _bs_inputs(rng, 2000, 40000, 300, 128)
+    a_d, r_d, c_d, x_d = _on(cuda_dev, a, rows, cols, x)
+    x_d = x_d.to(dtype)
+    one = bs_ops.bsr_spmm_kernel(a_d, r_d, c_d, x_d, nb)
+    two = bs_ops.bsr_spmm_kernel(a_d, r_d, c_d, x_d, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+
+
+@pytest.mark.cuda
+def test_cuda_bsr_spmm_refuses_bad_inputs(cuda_dev):
+    a = torch.zeros(2, 8, 8, device=cuda_dev)
+    ids = torch.zeros(2, dtype=torch.int32, device=cuda_dev)
+    x = torch.zeros(4, 8, 16, device=cuda_dev)
+    before = bs_ops.LAUNCHES["bsr_spmm"]
+    with pytest.raises(TypeError):
+        bs_ops.bsr_spmm_kernel(a.double(), ids, ids, x, 4)
+    with pytest.raises(TypeError):
+        bs_ops.bsr_spmm_kernel(a, ids.long(), ids, x, 4)
+    with pytest.raises(TypeError):
+        bs_ops.bsr_spmm_kernel(a, ids, ids, x.half(), 4)
+    with pytest.raises(ValueError, match="expected"):
+        bs_ops.bsr_spmm_kernel(a, ids.cpu(), ids, x, 4)
+    with pytest.raises(ValueError, match="expected"):
+        bs_ops.bsr_spmm_kernel(a.cpu(), ids, ids, x, 4)
+    with pytest.raises(ValueError, match="n_src_blocks, B=8"):
+        bs_ops.bsr_spmm_kernel(a, ids, ids, x.view(2, 16, 16), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        bs_ops.bsr_spmm_kernel(a, ids, ids, x.transpose(0, 1).contiguous()
+                               .transpose(0, 1), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        bs_ops.bsr_spmm(torch.zeros(16, 32, device=cuda_dev).t(), a, ids,
+                        ids, 4, block=8)
+    with pytest.raises(ValueError, match="sorted"):
+        bs_ops.bsr_spmm_kernel(a, torch.tensor([1, 0], dtype=torch.int32,
+                                                device=cuda_dev), ids, x, 4)
+    with pytest.raises(ValueError, match="B=256"):
+        big = torch.zeros(1, 256, 256, device=cuda_dev)
+        bs_ops.bsr_spmm_kernel(big, ids[:1], ids[:1],
+                               torch.zeros(1, 256, 4, device=cuda_dev), 1)
+    assert bs_ops.LAUNCHES["bsr_spmm"] == before
