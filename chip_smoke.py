@@ -4,7 +4,9 @@
     python3 chip_smoke.py            # one CUDA card, nvcc under /usr/local/cuda
 
 Builds the CUDA kernels from the sources in this checkout (five packages,
-one ``nvcc`` per source, all started together), then:
+one ``nvcc`` per source, all started together), prints ``nvcc``'s register
+and spill report and checks that the bf16 flash kernel's SASS holds
+``HGMMA`` (``wgmma``) instructions (``cuobjdump -sass``), then:
 
 - Phase A: each kernel against its plain PyTorch version at the shapes the
   main path gives it (the largest layer-0 unit of phase D's plan; for
@@ -286,6 +288,20 @@ def dense_report(r: dict) -> str:
         txt += (f", grads max rel {r['dense_grad_rel_err_f32_branches']:.3e} "
                 f"of the float64 oracle on float32's branches there")
     return txt
+
+
+def hgmma_count(build) -> int:
+    """``HGMMA`` (wgmma) instructions in the SASS of the built
+    ``flash_attention`` library's ``flash_fwd_wgmma`` functions
+    (``cuobjdump -sass``)."""
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True, timeout=120,
+    ).stdout
+    funcs = sass.split("Function : ")
+    return sum(f.count("HGMMA") for f in funcs[1:]
+               if "flash_fwd_wgmma" in f.split("\n", 1)[0])
 
 
 def bound(nbytes: float, flops: float):
@@ -796,8 +812,11 @@ def phase_a_flash(dev) -> dict:
           f"float64), max {worst_ulp} bf16 ulp vs plain; at the prefill "
           f"shape {pairs:.4e} (q, k) pairs, {flops:.4e} FLOP: bound "
           f"{t_tc:.4f} ms at the bf16 tensor-core rate, {t_f32:.4f} ms at "
-          f"the float32 rate, {t_b:.4f} ms for the bytes; kernel "
-          f"{flops / out['ms'] / 1e9:.2f} TFLOP/s", flush=True)
+          f"the float32 rate, {t_b:.4f} ms for the bytes; the kernel's own "
+          f"tensor-core floor {2 * t_tc:.4f} ms (P V in three bf16 terms of "
+          f"P: twice the products); kernel {flops / out['ms'] / 1e9:.2f} "
+          f"TFLOP/s of the attention's FLOP, {2 * t_tc / out['ms']:.3f} of "
+          f"its own floor", flush=True)
     del q, k, v, kern
     torch.cuda.empty_cache()
     return out
@@ -1010,8 +1029,8 @@ def phase_a_bsr(dev):
           f"dense block layout's products {dense:.4e} FLOP, "
           f"{dense / flops:.0f}x, {dense / F32_FLOP_PER_S * 1e3:.4f} ms at "
           f"float32's rate ({dense / TF32_FLOP_PER_S * 1e3:.4f} ms at "
-          f"TF32's); kernel {row['ms'] / b_ms:.1f}x its bound, "
-          f"{dense / row['ms'] / 1e9:.2f} TFLOP/s of dense-layout products;"
+          f"TF32's: the first design's work); kernel {row['ms'] / b_ms:.1f}x"
+          f" its bound, {row['ms'] / lib_ms:.1f}x the library call;"
           f" library CSR torch.sparse.mm of the edges {lib_ms:.4f} ms; peak "
           f"device {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; main "
           f"shape {laps[-1][1] - laps[0][1]:.1f} s (" + ", ".join(
@@ -1870,6 +1889,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     for pkg in KERNEL_PACKAGES:
         print(_build.build_log(pkg).strip(), flush=True)
+    n = hgmma_count(_build)
+    check(n > 0, f"flash_attention's bf16 kernel (flash_fwd_wgmma) has {n} "
+          f"HGMMA instructions in its SASS: it runs on the tensor cores")
 
     t_all = time.perf_counter()
     # B and C first: the launcher keeps one graph, so the full-width one is

@@ -15,35 +15,52 @@
 //   leaves it unwritten). The TPU grid ran (D / d_block, nnz) steps in
 //   order, carrying each output block in VMEM across a row's consecutive
 //   steps; here blocks run in parallel in no order, so one CUDA block owns
-//   one output tile and loops over the row's nonzero blocks itself.
+//   one destination block row and walks the row's nonzero blocks itself.
 //   Bound: bytes. At the GCN main path's shape (65,536 nodes, B 128,
-//   152,272 nonzero blocks, D 1,024) the bytes (10 GB of blocks, x and out
-//   once) take 3.1 ms at 3.35 TB/s, while Â·X needs only its nonzero
-//   products (2 * 1.46e6 entries * D = 3.0e9 FLOP, 0.045 ms). What limits
-//   this design is the dense block layout's work: it multiplies every
-//   entry of every block, 2 * nnz * B^2 * D = 5.11e12 FLOP, 76 ms at
-//   float32's 67 TFLOP/s. Float32 means float32: no TF32 tensor cores.
-//   Design: one 256-thread block per (destination block row r, 64-wide
-//   column tile of D), the tile index fastest, so the tiles of one row run
-//   side by side and share the row's A blocks through L2. Thread 0
-//   binary-searches the row's block range [lo, hi) in the sorted row_ids.
-//   The block walks the row's blocks in ascending order, each in 32-wide
-//   k-slices: A[blk][:, k0:k0+32] (transposed, 16.5 KB) and
-//   X[col][k0:k0+32, tile] (8 KB) are staged in shared memory, the next
-//   slice's values are loaded into registers while the current one is
-//   multiplied, and each thread accumulates an 8 x 4 register tile of the
-//   128 x 64 output with float32 FMAs (per k: two float4 reads of A, one of
-//   X, 32 FMAs). Ragged B (< 128, not a multiple of 32) and ragged D are
-//   masked: padded entries are 0 and add exactly nothing. The tile is
-//   written once. No atomics and no block depends on another, so a rerun
-//   has the same bits; each output element is one FMA chain over the
-//   row's K_r * B terms, of which only its m_r nonzero entries of A round
-//   (a zero product adds exactly nothing): within about m_r * 2^-24 *
-//   sum |a x| of the exact sum.
-//   Known limits: SIMT FMAs (wgmma with TMA-fed tiles is the next step);
-//   zero sub-tiles of a block are multiplied like any other (at the main
-//   path's density, 9.6 edges per 16,384-entry block, almost all of the
-//   work).
+//   152,272 nonzero blocks, D 1,024, 9.6 nonzero entries a block) the
+//   blocks are 9.98 GB, 3.0 ms at 3.35 TB/s, and with x and out read and
+//   written once 3.1 ms, while A.X needs only its nonzero products (2 *
+//   1.46e6 entries * D = 3.0e9 FLOP, 0.045 ms). A dense product of each
+//   block does 1,709x that work (5.1e12 FLOP), all but a few of them on
+//   zeros: that was this kernel's first design, 138 ms.
+//   Design: only the nonzero entries are multiplied. One block of 512
+//   threads (16 warps) per (destination block row, 512-column part of D).
+//   Warp w loads rows w, w + 16, ... of each of the row's A blocks as
+//   coalesced 128-byte loads (a lane holds columns lane + 32 c), finds the
+//   nonzero entries with one ballot per 32 columns and appends each as (a,
+//   x row) to its row's list in shared memory, in (block, column) order,
+//   at positions from the ballots' prefix counts. A row's list is a chain
+//   of 32-entry pages from a pool of 512 (16,384 entries, 128 KB) shared by
+//   the block's 128 rows, so a hub row takes as many pages as it needs.
+//   After the row's last block every (row, 128-column tile) pair is applied
+//   by one warp, pairs of one row on neighbouring warps so a hub row's
+//   tiles run side by side: a lane accumulates 4 columns in registers, one
+//   float32 FMA per entry and column, over the row's pages in order, x rows
+//   loaded eight entries ahead. When the pool cannot take the next block
+//   (a block row with more than ~12,000 nonzeros), every row is applied
+//   first and its float32 partial sums stored (in out itself for float32,
+//   in a float32 scratch for bfloat16) and loaded back at the next apply.
+//   Pages are taken with shared-memory atomics, so which page holds what
+//   varies, but not the order of the sums: every output element is one
+//   float32 FMA chain over its row's nonzero entries in (block, column)
+//   order, so a rerun is bitwise equal and each element is within (m_r +
+//   1) 2^-23 (|A| |X|)_r of the plain version's sum (m_r nonzero entries),
+//   the limit bsr_spmm_tolerance states. Entries that are 0 are skipped, so
+//   0 * inf or 0 * NaN in x adds nothing here, where the dense product
+//   (and the plain version) gives NaN. Ragged B (< 128) and D are masked;
+//   x is read in place.
+//   The two parts of a row each scan its blocks, the second mostly from
+//   memory again; one 1,024-column part scans them once but leaves half as
+//   many blocks to apply the rows (scripts/pt_kernel_variants.py times
+//   both). Tried and not kept, for being slower: fixed 128-entry buckets
+//   per row (a hub row flushed every 128 entries); loading the next
+//   block's values ahead (more registers).
+//   Floor of this layout: the 9.98 GB of blocks alone take 3.0 ms, about 3x
+//   the CSR product of the same edges, which reads 1.46 M (column, weight)
+//   pairs instead.
+//
+// ptxas (nvcc 12.9, sm_90a): 123 registers (float32 and bf16 x), no
+// spills; 132 KB of dynamic shared memory, one block per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,13 +68,27 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileM = 128;   // output rows of a tile (B <= 128)
-constexpr int kTileN = 64;    // output columns of a tile
-constexpr int kTileK = 32;    // k-slice staged at once
-constexpr int kPadA = 4;      // keeps the transposed A stores conflict-free
-constexpr int kARegs = kTileK * kTileM / kThreads;  // 16
-constexpr int kXRegs = kTileK * kTileN / kThreads;  // 8
+constexpr int kWarps = 16;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxB = 128;
+constexpr int kRowsPerWarp = kMaxB / kWarps;  // 8: rows w + 16 q
+constexpr int kPage = 32;                     // entries of a page
+constexpr int kPages = 512;                   // pool: any one block's fit
+constexpr int kTileCols = 128;                // columns of a (row, tile) pair
+constexpr int kPartCols = 512;                // columns of one block's part
+constexpr int kTiles = kPartCols / kTileCols;
+constexpr int kUnroll = 8;                    // entries loaded ahead
+
+struct Smem {
+  float a[kPages * kPage];  // entry values
+  int src[kPages * kPage];  // entry x rows (col_ids[blk] * B + k)
+  int next[kPages];         // a row's next page
+  int head[kMaxB], tail[kMaxB], cnt[kMaxB];  // a row's pages and entries
+  int started[kMaxB];       // partial sums stored at an earlier flush
+  int used;                 // pages taken since the last flush
+  int req[2];               // pages this block asks for (by block parity)
+  long long range[2];
+};
 
 // first index i in [0, n) with rows[i] >= key (n when none)
 __device__ long long lower_bound(const int* __restrict__ rows, long long n,
@@ -79,135 +110,260 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Load k-slice `step` of the row's block walk into registers: A entries
-// (i, k0 + kk) with kk = lane % 8 + 8 * (s % 4), i = lane / 8 + 4 * warp +
-// 32 * (s / 4) (a warp reads 4 rows x 32 bytes, and its transposed stores
-// hit 32 distinct banks), and X entries (k0 + kk, d0 + j) with j = t % 64,
-// kk = t / 64 + 4 * s.
+// acc[c] (column c0 + lane + 32 c) += a * x[src, column] over a run of n
+// entries, in order
 template <typename T>
-__device__ __forceinline__ void load_slice(
-    const float* __restrict__ a, const int* __restrict__ col_ids,
-    const T* __restrict__ x, long long blk, int k0, int B, long long D,
-    long long d0, float (&ra)[kARegs], float (&rx)[kXRegs]) {
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const float* ab = a + blk * B * B;
-  const T* xb = x + (long long)col_ids[blk] * B * D;
+__device__ __forceinline__ void apply_run(const float* __restrict__ ea,
+                                          const int* __restrict__ es, int n,
+                                          const T* __restrict__ x, long long D,
+                                          long long c0, int lane,
+                                          const bool (&ok)[4], float (&acc)[4]) {
+  int e = 0;
+  for (; e + kUnroll <= n; e += kUnroll) {
+    float av[kUnroll], xv[kUnroll][4];  // a batch's loads first
 #pragma unroll
-  for (int s = 0; s < kARegs; ++s) {
-    const int kk = (lane & 7) + 8 * (s & 3);
-    const int i = (lane >> 3) + 4 * warp + 32 * (s >> 2);
-    ra[s] = (i < B && k0 + kk < B) ? ab[(long long)i * B + k0 + kk] : 0.f;
+    for (int u = 0; u < kUnroll; ++u) {
+      av[u] = ea[e + u];
+      const T* xr = x + (long long)es[e + u] * D + c0 + lane;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) xv[u][c] = ok[c] ? to_f32(xr[32 * c]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[c] = fmaf(av[u], xv[u][c], acc[c]);
   }
+  for (; e < n; ++e) {
+    const float av = ea[e];
+    const T* xr = x + (long long)es[e] * D + c0 + lane;
 #pragma unroll
-  for (int s = 0; s < kXRegs; ++s) {
-    const int kk = (t >> 6) + 4 * s;
-    const long long j = d0 + (t & 63);
-    rx[s] = (k0 + kk < B && j < D) ? to_f32(xb[(long long)(k0 + kk) * D + j])
-                                   : 0.f;
+    for (int c = 0; c < 4; ++c)
+      if (ok[c]) acc[c] = fmaf(av, to_f32(xr[32 * c]), acc[c]);
   }
 }
 
+// Applies every row's entries for each (row, tile) pair of this warp: pair
+// p = i * n_tiles + t, p = warp mod 16, so a row's tiles run on neighbouring
+// warps. A row's sums continue from its float32 partial if an earlier flush
+// stored one; they go to `partial` (a flush) or, rounded to T, to out.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ void apply_rows(const Smem& sm, const T* __restrict__ x, T* out,
+                           float* partial, long long r, int B, long long D,
+                           long long part0, int n_tiles, bool last, int warp,
+                           int lane) {
+  for (int p = warp; p < B * n_tiles; p += kWarps) {
+    const int i = p / n_tiles, t = p % n_tiles;
+    const long long c0 = part0 + (long long)t * kTileCols;
+    const long long row = (r * B + i) * D;
+    bool ok[4];
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      ok[c] = c0 + lane + 32 * c < D;
+      if (ok[c] && sm.started[i]) acc[c] = partial[row + c0 + lane + 32 * c];
+    }
+    // the row's pages in order, all full but the last
+    int page = sm.head[i];
+    for (int done = 0, n = sm.cnt[i]; done < n; done += kPage) {
+      apply_run(sm.a + page * kPage, sm.src + page * kPage,
+                min(kPage, n - done), x, D, c0, lane, ok, acc);
+      page = sm.next[page];
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (!ok[c]) continue;
+      const long long at = row + c0 + lane + 32 * c;
+      if (last)
+        store(out + at, acc[c]);
+      else
+        partial[at] = acc[c];
+    }
+  }
+}
+
+// this warp's rows w + 16 q, columns lane + 32 c, of A block blk (zeros past
+// B), and the block's first x row
+__device__ __forceinline__ void load_rows(const float* __restrict__ a,
+                                          const int* __restrict__ col_ids,
+                                          long long blk, int B, int warp,
+                                          int lane,
+                                          float (&v)[kRowsPerWarp][4],
+                                          int& xbase) {
+  const float* ab = a + blk * B * B;
+  xbase = col_ids[blk] * B;
+#pragma unroll
+  for (int q = 0; q < kRowsPerWarp; ++q)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = warp + kWarps * q, k = lane + 32 * c;
+      v[q][c] = (i < B && k < B) ? ab[i * B + k] : 0.f;
+    }
+}
+
+// pages a row needs to take `tot` more entries after its `cnt`
+__device__ __forceinline__ int pages_needed(int cnt, int tot) {
+  const int room = (kPage - cnt % kPage) % kPage;  // left in the last page
+  return tot > room ? (tot - room + kPage - 1) / kPage : 0;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
 bsr_spmm_kernel(const float* __restrict__ a, const int* __restrict__ row_ids,
                 const int* __restrict__ col_ids, const T* __restrict__ x,
-                T* __restrict__ out, long long nnz, int B, long long D,
-                long long n_tiles) {
-  __shared__ __align__(16) float As[kTileK][kTileM + kPadA];  // A[i][k0+k]
-  __shared__ __align__(16) float Xs[kTileK][kTileN];          // X[k0+k][j]
-  __shared__ long long range[2];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const long long r = (long long)blockIdx.x / n_tiles;
-  const long long d0 = ((long long)blockIdx.x % n_tiles) * kTileN;
-  if (t == 0) {
-    range[0] = lower_bound(row_ids, nnz, r);
-    range[1] = lower_bound(row_ids, nnz, r + 1);
+                T* out, float* partial, long long nnz,
+                int B, long long D, int n_parts) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long r = (long long)blockIdx.x / n_parts;
+  const long long part0 = ((long long)blockIdx.x % n_parts) * kPartCols;
+  const int n_tiles =
+      (int)min((long long)kTiles, (D - part0 + kTileCols - 1) / kTileCols);
+  if (tid == 0) {
+    sm.range[0] = lower_bound(row_ids, nnz, r);
+    sm.range[1] = lower_bound(row_ids, nnz, r + 1);
+    sm.used = 0;
+    sm.req[0] = sm.req[1] = 0;
+  }
+  if (tid < kMaxB) {
+    sm.cnt[tid] = 0;
+    sm.started[tid] = 0;
   }
   __syncthreads();
-  const long long lo = range[0];
-  const int n_k = (B + kTileK - 1) / kTileK;
-  const long long steps = (range[1] - lo) * n_k;
-  const int ty = t >> 4, tx = t & 15;  // rows ty*8 .. +7, columns tx*4 .. +3
+  const long long lo = sm.range[0], hi = sm.range[1];
+  const unsigned lt = (1u << lane) - 1u;  // lanes below this one
 
-  float acc[8][4];
+  int cnt[kRowsPerWarp];  // entries of row w + 16 q since the last flush
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int q = 0; q < kRowsPerWarp; ++q) cnt[q] = 0;
 
-  float ra[kARegs], rx[kXRegs];
-  if (steps > 0) load_slice(a, col_ids, x, lo, 0, B, D, d0, ra, rx);
-  for (long long st = 0; st < steps; ++st) {
+  for (long long blk = lo; blk < hi; ++blk) {
+    // rows w + 16 q, columns lane + 32 c of the block
+    float v[kRowsPerWarp][4];
+    int xbase;
+    load_rows(a, col_ids, blk, B, warp, lane, v, xbase);
+    const int par = (int)(blk & 1);
+    if (tid == 0) sm.req[par ^ 1] = 0;  // the next block's count
+    int tot[kRowsPerWarp], need = 0;
 #pragma unroll
-    for (int s = 0; s < kARegs; ++s)
-      As[(lane & 7) + 8 * (s & 3)][(lane >> 3) + 4 * warp + 32 * (s >> 2)] = ra[s];
+    for (int q = 0; q < kRowsPerWarp; ++q) {
+      tot[q] = 0;
 #pragma unroll
-    for (int s = 0; s < kXRegs; ++s) Xs[(t >> 6) + 4 * s][t & 63] = rx[s];
-    __syncthreads();
-    if (st + 1 < steps) {
-      const long long nx = st + 1;
-      load_slice(a, col_ids, x, lo + nx / n_k, (int)(nx % n_k) * kTileK, B,
-                 D, d0, ra, rx);
+      for (int c = 0; c < 4; ++c)
+        tot[q] += __popc(__ballot_sync(0xffffffffu, v[q][c] != 0.f));
+      need += pages_needed(cnt[q], tot[q]);
     }
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * 8 + 4]);
-      const float4 xv = *reinterpret_cast<const float4*>(&Xs[kk][tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], xs[j], acc[i][j]);
-    }
+    if (lane == 0 && need) atomicAdd(&sm.req[par], need);
     __syncthreads();
+    // every thread reads the same count before any takes a page
+    if (__syncthreads_or(sm.used + sm.req[par] > kPages)) {
+      // the pool cannot take this block: apply every row so far, keep the
+      // float32 partial sums, start the pool over
+#pragma unroll
+      for (int q = 0; q < kRowsPerWarp; ++q) {
+        const int i = warp + kWarps * q;
+        if (lane == 0 && i < B) sm.cnt[i] = cnt[q];
+      }
+      __syncthreads();
+      apply_rows(sm, x, out, partial, r, B, D, part0, n_tiles, false, warp,
+                 lane);
+      __syncthreads();
+      if (tid < kMaxB) sm.started[tid] = 1;
+      if (tid == 0) sm.used = 0;
+#pragma unroll
+      for (int q = 0; q < kRowsPerWarp; ++q) cnt[q] = 0;
+      __syncthreads();
+    }
+    // take the pages (a row's new pages are consecutive) and append the
+    // nonzero entries in column order, at the ballots' prefix counts
+#pragma unroll
+    for (int q = 0; q < kRowsPerWarp; ++q) {
+      const int i = warp + kWarps * q;
+      if (tot[q] == 0) continue;  // warp-uniform
+      const int np = pages_needed(cnt[q], tot[q]);
+      const int old_tail = sm.tail[i];  // the last page, if cnt > 0
+      __syncwarp();                     // read by every lane before lane 0
+      int first = 0;                    // updates it
+      if (lane == 0 && np) first = atomicAdd(&sm.used, np);
+      first = __shfl_sync(0xffffffffu, first, 0);
+      if (lane == 0 && np) {
+        if (cnt[q] == 0)
+          sm.head[i] = first;
+        else
+          sm.next[sm.tail[i]] = first;
+        for (int j = 0; j + 1 < np; ++j) sm.next[first + j] = first + j + 1;
+        sm.tail[i] = first + np - 1;
+      }
+      const int room = (kPage - cnt[q] % kPage) % kPage;
+      int pos = 0;  // this block's entry number in the row
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const unsigned m = __ballot_sync(0xffffffffu, v[q][c] != 0.f);
+        if (v[q][c] != 0.f) {
+          const int e = pos + __popc(m & lt);
+          const int at = e < room
+                             ? old_tail * kPage + kPage - room + e
+                             : (first + (e - room) / kPage) * kPage +
+                                   (e - room) % kPage;
+          sm.a[at] = v[q][c];
+          sm.src[at] = xbase + lane + 32 * c;
+        }
+        pos += __popc(m);
+      }
+      cnt[q] += tot[q];
+    }
   }
 
-  // the tile, written once (zeros for a row with no nonzero block)
-  T* ob = out + r * B * D;
+  if (lane == 0) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = ty * 8 + i;
-    if (row >= B) break;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const long long col = d0 + tx * 4 + j;
-      if (col < D) store(ob + (long long)row * D + col, acc[i][j]);
+    for (int q = 0; q < kRowsPerWarp; ++q) {
+      const int i = warp + kWarps * q;
+      if (i < B) sm.cnt[i] = cnt[q];
     }
   }
+  __syncthreads();
+  apply_rows(sm, x, out, partial, r, B, D, part0, n_tiles, true, warp, lane);
 }
 
 template <typename T>
 int launch(const float* a, const int* row_ids, const int* col_ids,
-           const T* x, T* out, long long nnz, long long B, long long D,
-           long long n_dst_blocks, cudaStream_t stream) {
+           const T* x, T* out, float* partial, long long nnz, long long B,
+           long long D, long long n_dst_blocks, cudaStream_t stream) {
   if (n_dst_blocks <= 0 || B <= 0 || D <= 0) return (int)cudaGetLastError();
-  if (B > kTileM) return (int)cudaErrorInvalidValue;
-  const long long n_tiles = (D + kTileN - 1) / kTileN;
-  const long long grid = n_dst_blocks * n_tiles;
+  if (B > kMaxB) return (int)cudaErrorInvalidValue;
+  const long long n_parts = (D + kPartCols - 1) / kPartCols;
+  const long long grid = n_dst_blocks * n_parts;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  bsr_spmm_kernel<T><<<(unsigned)grid, kThreads, 0, stream>>>(
-      a, row_ids, col_ids, x, out, nnz, (int)B, D, n_tiles);
+  const int smem = (int)sizeof(Smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      bsr_spmm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  bsr_spmm_kernel<T><<<(unsigned)grid, kThreads, smem, stream>>>(
+      a, row_ids, col_ids, x, out, partial, nnz, (int)B, D, (int)n_parts);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// x rows are addressed as int32 (col_ids * B + k): the wrapper keeps
+// n_src_blocks * B below 2^31. For float32 the flushed rows' partial sums
+// go to out itself (so out and partial alias: neither is __restrict__).
 extern "C" int bsr_spmm_f32(const float* a, const int* row_ids,
                             const int* col_ids, const float* x, float* out,
                             long long nnz, long long B, long long D,
                             long long n_dst_blocks, cudaStream_t stream) {
-  return launch<float>(a, row_ids, col_ids, x, out, nnz, B, D, n_dst_blocks,
-                       stream);
+  return launch<float>(a, row_ids, col_ids, x, out, out, nnz, B, D,
+                       n_dst_blocks, stream);
 }
 
+// `partial`: float32 scratch of out's shape, for the flushed rows' sums
 extern "C" int bsr_spmm_bf16x(const float* a, const int* row_ids,
                               const int* col_ids, const void* x, void* out,
-                              long long nnz, long long B, long long D,
-                              long long n_dst_blocks, cudaStream_t stream) {
+                              float* partial, long long nnz, long long B,
+                              long long D, long long n_dst_blocks,
+                              cudaStream_t stream) {
   return launch<__nv_bfloat16>(a, row_ids, col_ids,
                                static_cast<const __nv_bfloat16*>(x),
-                               static_cast<__nv_bfloat16*>(out), nnz, B, D,
-                               n_dst_blocks, stream);
+                               static_cast<__nv_bfloat16*>(out), partial, nnz,
+                               B, D, n_dst_blocks, stream);
 }

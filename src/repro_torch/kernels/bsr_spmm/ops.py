@@ -10,14 +10,18 @@ ever does. There is no fallback from a CUDA tensor to the plain version.
 
 Not carried over from the reference (``src/repro/kernels/bsr_spmm/ops.py``):
 ``interpret`` (a Pallas mode) and ``d_block`` (a VMEM tile width: the CUDA
-kernel picks its own 64-column tile and masks a ragged D, so x is read in
+kernel picks its own 512-column parts and masks a ragged D, so x is read in
 place, never padded or copied); and ``spmm_fallback``, which is
 ``spmm_edges_ref`` under another name — the port has no fallbacks.
 
-Departures from the TPU kernel, both deliberate: a destination block row
+Departures from the TPU kernel, all deliberate: a destination block row
 with no nonzero block comes back zero (the TPU kernel leaves it
-unwritten), and a bfloat16 x is summed across the row's blocks in float32
-and rounded once (the TPU kernel rounds after every block).
+unwritten); a bfloat16 x is summed across the row's blocks in float32
+and rounded once (the TPU kernel rounds after every block); and on the
+card only A's nonzero entries are multiplied, so an inf or NaN in x
+reaches only the outputs whose row has a nonzero entry against it (the
+dense block product, and the plain version, give NaN in every row of a
+block whose columns hold it: 0 * inf).
 """
 from __future__ import annotations
 
@@ -51,8 +55,12 @@ def _lib():
     global _bound
     if _bound is None:
         lib = _build.load("bsr_spmm")
+        lib.bsr_spmm_f32.argtypes = [_P, _P, _P, _P, _P, _I64, _I64, _I64,
+                                     _I64, _P]
+        # bf16 x: a float32 scratch of out's shape after out
+        lib.bsr_spmm_bf16x.argtypes = [_P, _P, _P, _P, _P, _P, _I64, _I64,
+                                       _I64, _I64, _P]
         for fn in (lib.bsr_spmm_f32, lib.bsr_spmm_bf16x):
-            fn.argtypes = [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P]
             fn.restype = ctypes.c_int
         _bound = lib
     return _bound
@@ -134,14 +142,23 @@ def bsr_spmm_kernel(a_blocks: torch.Tensor, row_ids: torch.Tensor,
     if B > MAX_BLOCK:
         raise ValueError(f"block B={B} > {MAX_BLOCK} is not supported by the "
                          f"kernel")
+    if x.shape[0] * B >= 2 ** 31:
+        raise ValueError(f"x has {x.shape[0] * B} rows; the kernel addresses "
+                         f"them as int32")
     out = torch.empty((n_dst_blocks, B, D), dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
-    fn = _lib().bsr_spmm_f32 if x.dtype == torch.float32 \
-        else _lib().bsr_spmm_bf16x
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(a_blocks.data_ptr(), row_ids.data_ptr(), col_ids.data_ptr(),
-             x.data_ptr(), out.data_ptr(), nnz, B, D, n_dst_blocks, stream)
+    args = (a_blocks.data_ptr(), row_ids.data_ptr(), col_ids.data_ptr(),
+            x.data_ptr(), out.data_ptr())
+    if x.dtype == torch.float32:
+        err = _lib().bsr_spmm_f32(*args, nnz, B, D, n_dst_blocks, stream)
+    else:
+        # the float32 partial sums of rows done in chunks (the kernel keeps
+        # them in out itself when out is float32)
+        partial = torch.empty(out.shape, dtype=torch.float32, device=dev)
+        err = _lib().bsr_spmm_bf16x(*args, partial.data_ptr(), nnz, B, D,
+                                    n_dst_blocks, stream)
     if err != 0:
         raise RuntimeError(f"bsr_spmm kernel launch failed: cudaError {err}")
     LAUNCHES["bsr_spmm"] += 1

@@ -403,6 +403,69 @@ def test_cuda_flash_attention_refuses_bad_inputs(cuda_dev):
     assert fa_ops.LAUNCHES["flash_attention"] == before
 
 
+def _fa_bf16(dev, seed, B, Sq, Skv, Hq, Hkv, D):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((B, Sq, Hq, D), generator=gen, device=dev).bfloat16(),
+            torch.randn((B, Skv, Hkv, D), generator=gen, device=dev).bfloat16(),
+            torch.randn((B, Skv, Hkv, D), generator=gen, device=dev).bfloat16())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bf16_long_causal_vs_plain(cuda_dev):
+    """The prefill's checks at S 4,096 (GQA 8 / 2 heads of 128, causal):
+    within 2^-7 |plain| + 1e-6 elementwise, at least 99% of the elements
+    bitwise equal to plain, a rerun bitwise."""
+    q, k, v = _fa_bf16(cuda_dev, 1, 1, 4096, 4096, 8, 2, 128)
+    got = fa_ops.flash_attention(q, k, v)
+    plain = fa_ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    err = (got.float() - plain.float()).abs()
+    assert bool(torch.all(err <= 2.0 ** -7 * plain.float().abs() + 1e-6))
+    assert float((got == plain).float().mean()) >= 0.99
+    assert torch.equal(fa_ops.flash_attention(q, k, v), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_bf16_window_skips_tiles(cuda_dev, causal):
+    """A window of 64 over 4,096 keys: each query tile reads at most two of
+    the 32 KV tiles, the rest are skipped; within 1 bf16 ulp of plain and
+    bitwise on a rerun."""
+    q, k, v = _fa_bf16(cuda_dev, 2, 1, 4096, 4096, 4, 2, 128)
+    got = fa_ops.flash_attention(q, k, v, causal, 64)
+    plain = fa_ref.flash_attention_ref(q, k, v, causal, 64)
+    torch.cuda.synchronize()
+    assert fa_ref.within_one_bf16_ulp(got, plain)
+    assert torch.equal(fa_ops.flash_attention(q, k, v, causal, 64), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [20, 72])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_flash_attention_bf16_odd_widths_and_bases(cuda_dev, D, offset):
+    """Tensors TMA cannot take (D * 2 not a multiple of 16, or a base that
+    is not 16-byte aligned: a view one element into its buffer) are loaded
+    by the producer's threads in the same kernel: within 1 bf16 ulp of
+    plain, one launch each."""
+    B, Sq, Skv, Hq, Hkv = 1, 200, 200, 4, 2
+    qf, kf, vf = _fa_bf16(cuda_dev, 3, B, Sq, Skv, Hq, Hkv, D)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+        out = buf[offset:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    q, k, v = shifted(qf), shifted(kf), shifted(vf)
+    for causal, window in FA_MASKS:
+        before = fa_ops.LAUNCHES["flash_attention"]
+        got = fa_ops.flash_attention(q, k, v, causal, window)
+        plain = fa_ref.flash_attention_ref(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        assert fa_ops.LAUNCHES["flash_attention"] == before + 1
+        assert fa_ref.within_one_bf16_ulp(got, plain)
+
+
 # ---------------------------------------------------------------- bsr_spmm
 # the JAX kernel tests' grid (tests/test_kernels.py), a ragged D, B 64 and 8
 BS_SHAPES = [(300, 2000, 64, 128), (700, 5000, 128, 128),
@@ -522,3 +585,101 @@ def test_cuda_bsr_spmm_refuses_bad_inputs(cuda_dev):
         bs_ops.bsr_spmm_kernel(big, ids[:1], ids[:1],
                                torch.zeros(1, 256, 4, device=cuda_dev), 1)
     assert bs_ops.LAUNCHES["bsr_spmm"] == before
+
+
+def _bs_check(cuda_dev, a, rows, cols, x, nb, dtype=torch.float32):
+    """The kernel against plain within ``bsr_spmm_tolerance`` (bf16: or
+    within 1 ulp), block rows with no block exactly 0, a rerun bitwise;
+    returns the kernel's output."""
+    a_d, r_d, c_d, x_d = _on(cuda_dev, a, rows, cols, x)
+    x_d = x_d.to(dtype)
+    got = bs_ops.bsr_spmm_kernel(a_d, r_d, c_d, x_d, nb)
+    plain = bs_ref.bsr_spmm_ref(a_d, r_d, c_d, x_d, nb)
+    tol = bs_ref.bsr_spmm_tolerance(a_d, r_d, c_d, x_d, nb)
+    torch.cuda.synchronize()
+    err = (got.float() - plain.float()).abs()
+    ok = err <= tol
+    if dtype == torch.bfloat16:
+        ok |= fa_ref.bf16_ulp_distance(got, plain) <= 1
+    assert bool(torch.all(ok)), float((err - tol).max())
+    empty = np.setdiff1d(np.arange(nb), rows)
+    assert not bool(got[torch.from_numpy(empty).to(cuda_dev)].any())
+    assert torch.equal(bs_ops.bsr_spmm_kernel(a_d, r_d, c_d, x_d, nb), got)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_bsr_spmm_dense_zero_and_hub_blocks(cuda_dev, dtype, rng):
+    """A fully dense block, an all-zero block listed in the row ids, and a
+    hub block row whose rows take 300 nonzero entries each, past the 128 a
+    row's bucket holds, so it is done in chunks (row 1 of 4 is empty)."""
+    B, D, nb = 128, 200, 4
+    blocks = [(0, 0, rng.standard_normal((B, B))),           # dense
+              (0, 2, np.zeros((B, B))),                      # all zero
+              (2, 3, np.where(rng.random((B, B)) < 0.05,
+                              rng.standard_normal((B, B)), 0.0))]
+    for c in range(4):                                       # the hub row
+        blocks.append((3, c, np.where(rng.random((B, B)) < 0.6,
+                                      rng.standard_normal((B, B)), 0.0)))
+    blocks.sort(key=lambda t: (t[0], t[1]))
+    a = np.stack([t[2] for t in blocks]).astype(np.float32)
+    rows = np.array([t[0] for t in blocks], np.int32)
+    cols = np.array([t[1] for t in blocks], np.int32)
+    x = rng.standard_normal((nb, B, D)).astype(np.float32)
+    assert (a[rows == 3] != 0).sum(axis=(0, 2)).min() > 128
+    _bs_check(cuda_dev, a, rows, cols, x, nb, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_bsr_spmm_ragged_block_and_width(cuda_dev, dtype, rng):
+    """B 100 and D 200 (neither a multiple of 32 nor of the 128-column
+    tile), some block rows empty."""
+    src = rng.integers(0, 1000, 6000)
+    dst = rng.integers(0, 1000, 6000)
+    dst = dst[~np.isin(dst // 100, [1, 6])]
+    src = src[:dst.size]
+    w = rng.standard_normal(dst.size).astype(np.float32)
+    a, rows, cols, nb = bs_ops.blockify_edges(src, dst, w, 1000, block=100)
+    x = rng.standard_normal((nb, 100, 200)).astype(np.float32)
+    _bs_check(cuda_dev, a, rows, cols, x, nb, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_bsr_spmm_skips_zero_entries_of_nonfinite_x(cuda_dev, rng):
+    """The kernel multiplies only the nonzero entries of A, so an inf or
+    NaN in a row of x reaches only the outputs whose row has a nonzero
+    entry against it; the dense product (and the plain version) turns every
+    row of a block that holds it into NaN (0 * inf). A deliberate change,
+    listed in ROADMAP's divergences."""
+    src = rng.integers(0, 256, 900)
+    dst = rng.integers(0, 256, 900)
+    w = rng.standard_normal(src.size).astype(np.float32)
+    a, rows, cols, nb = bs_ops.blockify_edges(src, dst, w, 256)
+    x = rng.standard_normal((nb, 128, 16)).astype(np.float32)
+    s_inf, s_nan = int(src[0]), int(src[1])
+    x.reshape(-1, 16)[s_inf, 3] = np.inf
+    x.reshape(-1, 16)[s_nan, 5] = np.nan
+    a_d, r_d, c_d, x_d = _on(cuda_dev, a, rows, cols, x)
+    got = bs_ops.bsr_spmm_kernel(a_d, r_d, c_d, x_d, nb).view(-1, 16).cpu()
+    plain = bs_ref.bsr_spmm_ref(a_d, r_d, c_d, x_d, nb).view(-1, 16).cpu()
+    torch.cuda.synchronize()
+    # float64 sums over A's nonzero entries, and where they are not finite
+    blk, i, kk = np.nonzero(a)
+    d_idx = rows[blk].astype(np.int64) * 128 + i
+    s_idx = cols[blk].astype(np.int64) * 128 + kk
+    x2 = x.reshape(-1, 16)
+    want = bs_ref.spmm_edges_np(s_idx, d_idx, a[blk, i, kk], x2, nb * 128)
+    bad = ~np.isfinite(want)
+    assert bad.any()
+    g = got.numpy()
+    assert np.array_equal(~np.isfinite(g), bad)
+    assert np.array_equal(np.isnan(g), np.isnan(want))
+    tol = (np.bincount(d_idx, minlength=nb * 128)[:, None] + 1) * 2.0 ** -23 \
+        * bs_ref.spmm_edges_np(s_idx, d_idx, np.abs(a[blk, i, kk]),
+                               np.abs(np.nan_to_num(x2, posinf=0.0)), nb * 128)
+    assert np.all(np.abs(g[~bad] - want[~bad]) <= tol[~bad])
+    # plain: NaN on more outputs (every row of a block column that holds
+    # the inf or NaN)
+    assert int(torch.isnan(plain).sum()) > int(np.isnan(g).sum())

@@ -157,3 +157,92 @@ def test_bf16_ulp_distance():
     assert bf16_ulp_distance(a, b).tolist() == [1, 1, 0, 0, 0, 128]
     assert within_one_bf16_ulp(a, b)             # 1e-6 apart near 0
     assert not within_one_bf16_ulp(a[:1], -a[:1])
+
+
+# The CUDA kernel's bf16 route multiplies P V on the tensor cores, which take
+# P in bf16; the plain version (and the reference kernel) multiply a float32
+# P. The kernel splits P into three bf16 terms. A test-local emulation of
+# each choice (the plain version's loop with only the P V product changed)
+# held to the plain version's 1-ulp check on the card tests' grid: three
+# terms stay within it, one or two leave it.
+FA_SHAPES = [(1, 128, 128, 4, 4, 32), (2, 256, 256, 8, 2, 64),
+             (1, 512, 512, 4, 1, 128), (1, 200, 200, 4, 2, 128),
+             (1, 96, 200, 8, 2, 64), (1, 200, 160, 4, 2, 64),
+             (2, 40, 40, 8, 2, 8)]
+
+
+def _flash_bf16_p(q, k, v, causal, window, terms: int):
+    """``flash_attention_ref``'s arithmetic (128-key blocks, float32 scores,
+    m, l and acc) with P V taken as the tensor cores take it: bf16 P times
+    bf16 v, float32 sums. P is split into ``terms`` bf16 terms, each the
+    rounding of what the ones before it leave of p (1: P rounded once),
+    every term multiplied by v and summed into one float32 product."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = v.shape
+    G = Hq // Hkv
+    qf = q.float().reshape(B, Sq, Hkv, G, D).permute(0, 2, 3, 1, 4).reshape(
+        B, Hkv, G * Sq, D)
+    m = torch.full((B, Hkv, G, Sq), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, G, Sq, D))
+    qpos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Skv, 128):
+        k1 = min(k0 + 128, Skv)
+        kb = k[:, k0:k1].float().permute(0, 2, 3, 1)
+        vb = v[:, k0:k1].float().permute(0, 2, 1, 3)
+        s = torch.matmul(qf, kb).view(B, Hkv, G, Sq, k1 - k0) * (1 / D ** 0.5)
+        kpos = torch.arange(k0, k1)[None, :]
+        keep = torch.ones((Sq, k1 - k0), dtype=torch.bool)
+        if causal:
+            keep &= qpos >= kpos
+        if window is not None:
+            keep &= qpos - kpos < window
+        s = s.masked_fill(~keep, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        parts, rest = [], p
+        for _ in range(terms):
+            parts.append(rest.bfloat16().float())
+            rest = rest - parts[-1]
+        pv = sum(torch.matmul(t.view(B, Hkv, G * Sq, k1 - k0), vb)
+                 for t in parts)
+        acc = acc * corr[..., None] + pv.view(B, Hkv, G, Sq, D)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def _bf16_inputs(seed, shape):
+    return [t.to(torch.bfloat16) for t in _t(*_inputs(seed, *shape))]
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("shape", FA_SHAPES)
+def test_three_bf16_terms_of_p_within_one_ulp_of_plain(shape, causal, window):
+    B, Sq, Skv, Hq, Hkv, D = shape
+    if window is not None and Sq > Skv + window - 1:
+        pytest.skip("a row with no key: refused by the wrapper")
+    q, k, v = _bf16_inputs(7, shape)
+    plain = flash_attention_ref(q, k, v, causal, window)
+    got = _flash_bf16_p(q, k, v, causal, window, terms=3)
+    assert within_one_bf16_ulp(got, plain)
+
+
+@pytest.mark.parametrize("terms", [1, 2])
+def test_fewer_bf16_terms_of_p_miss_one_ulp_of_plain(terms):
+    """The controls: P rounded once to bf16 (as SDPA's flash kernel takes
+    it), or split in two terms, leaves the 1-ulp check somewhere on the
+    grid (two terms: at outputs near 0, where a term's rounding, up to
+    2^-18 of p, is more than an ulp and 1e-6)."""
+    missed = 0
+    for shape in FA_SHAPES:
+        for causal, window in MASKS:
+            if window is not None and shape[1] > shape[2] + window - 1:
+                continue
+            q, k, v = _bf16_inputs(7, shape)
+            got = _flash_bf16_p(q, k, v, causal, window, terms)
+            missed += not within_one_bf16_ulp(
+                got, flash_attention_ref(q, k, v, causal, window))
+    assert missed >= 1
