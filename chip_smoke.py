@@ -13,18 +13,24 @@ and spill report and checks that the bf16 flash kernel's SASS holds
   ``scatter_add`` phase D's largest grad write-back that is not one
   contiguous run): ``gather_rows`` bitwise; ``gather_aggregate`` bitwise
   against the numpy FMA oracle at small shapes and, at the main-path shape,
-  within ``(deg_row + 1) * 2^-23 * sum_e |w_e x_e|`` of the plain version;
-  ``scatter_add`` bitwise against the ``np.add.at`` oracle at small shapes
-  (duplicates, D = 7, one row, an untouched tail) and against its plain
-  version at the main-path shape, and deterministic on a rerun;
-  ``edge_softmax`` within ``(deg + 4 + |s - m|) * 2^-23`` relative of the
-  float64 numpy oracle at small shapes and, at the unit's real edges with
-  H = 4 heads (GAT's hidden layers), within ``(deg_row + 4) * 2^-23``
-  relative of the plain version per element, and bitwise on a rerun.
-  Prints kernel, plain, bound and library (``index_select`` / CSR
-  ``torch.sparse.mm`` / ``index_add_`` / COO ``torch.sparse.softmax``,
-  the last checked against the plain version too) times; the port never
-  calls the library ops. ``embedding_bag`` bitwise against its plain
+  within ``(deg_row + 1) * 2^-23 * sum_e |w_e x_e|`` of the plain version
+  and bitwise against the exact FMA oracle (``gather_aggregate_fma_np``)
+  on every row above the split threshold at 4 seeded columns of each
+  32-column slab and on 64 seeded ordinary rows at every column, then
+  deterministic at D = 256 too; ``scatter_add`` bitwise against the
+  ``np.add.at`` oracle at small shapes (duplicates, D = 7, one row, an
+  untouched tail) and against its plain version at the main-path shape,
+  and deterministic on a rerun; ``edge_softmax`` within ``(deg + 4 + |s -
+  m|) * 2^-23`` relative of the float64 numpy oracle at small shapes and,
+  at the unit's real edges with H = 4 heads (GAT's hidden layers), within
+  ``(deg_row + 4) * 2^-23`` relative of the plain version per element, and
+  bitwise on a rerun. Prints kernel, plain, bound and library
+  (``index_select`` / CSR ``torch.sparse.mm`` / ``index_add_`` / COO
+  ``torch.sparse.softmax``, the last checked against the plain version
+  too) times, ``gather_aggregate`` also at D = 256; the port never calls
+  the library ops. ``gather_rows`` and ``scatter_add`` (and their library
+  calls) are timed as the median device time of 200 launches queued
+  behind a sleep (``queued_ms``, a b b a), the rest with ``time_ms``. ``embedding_bag`` bitwise against its plain
   version (and within 1e-5 of a float64 sum) at small shapes with odd
   widths and NaN / wrapped ids, then at phase H's ``serve_bulk`` user-tower
   shape (table 10,000,000 x 256, ids (2,097,152, 16) uniform from numpy
@@ -242,6 +248,14 @@ LM_KERNEL_TOL = 5e-2
 LM_ROUNDTRIP_TOL = 5e-2
 LM_F32_LAYERS = 2
 LM_F32_TOL = 1e-4
+# queued_ms: the device sleeps ~25 ms (H100 clocks) while the host queues
+SLEEP_CYCLES = 50_000_000
+# phase A: the main shape against the exact FMA oracle: a seeded sample of
+# ordinary rows at every column, every heavy row at this many seeded
+# columns of each 32-column slab (every row and slab of the split path, in
+# seconds: the heavy rows hold most of the unit's edges)
+ORACLE_ORDINARY_ROWS = 64
+ORACLE_SLAB_COLS = 4
 
 
 def check(cond, what: str) -> None:
@@ -274,6 +288,69 @@ def time_ms(fn, iters: int = 5) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def queued_ms(fns: dict, launches: int = 100) -> dict:
+    """Median device ms per launch of each function in ``fns`` (name ->
+    callable), for calls too short for ``time_ms``'s host loop: each round
+    queues ``launches`` calls, every one between two CUDA events, behind a
+    ``torch.cuda._sleep`` long enough that the device never waits on the
+    host (checked: the sleep is still running when the last call is
+    queued). Rounds in the order a b ... b a, so each function runs
+    ``2 * launches`` times."""
+    import statistics
+
+    import torch
+
+    names = list(fns)
+    times = {n: [] for n in names}
+    for n in names:
+        fns[n]()
+    torch.cuda.synchronize()
+    for n in names + names[::-1]:
+        evs = [torch.cuda.Event(enable_timing=True)
+               for _ in range(launches + 1)]
+        torch.cuda._sleep(SLEEP_CYCLES)
+        gate = torch.cuda.Event()
+        gate.record()
+        evs[0].record()
+        for ev in evs[1:]:
+            fns[n]()
+            ev.record()
+        queued = not gate.query()
+        torch.cuda.synchronize()
+        check(queued, f"{n}: {launches} launches queued while the device "
+              f"slept")
+        times[n] += [a.elapsed_time(b) for a, b in zip(evs, evs[1:])]
+    return {n: statistics.median(t) for n, t in times.items()}
+
+
+def fma_oracle_rows(stack, erows, dst, w, rows, cols=None):
+    """``gather_aggregate``'s exact FMA oracle (``ref.gather_aggregate_
+    fma_np``, one thread per core) on ``rows`` only, at columns ``cols``
+    (all when None): it gets just those rows' edges, in edge order, and
+    those columns of their source rows. Returns the ``(len(rows),
+    len(cols))`` float32 result and how many of its steps would have
+    rounded twice in float64."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.gather_scatter import ref
+
+    dst_np = dst.cpu().numpy()
+    lo = np.searchsorted(dst_np, rows, "left")
+    hi = np.searchsorted(dst_np, rows, "right")
+    idx = np.concatenate([np.arange(a, b) for a, b in zip(lo, hi)])
+    uniq, inv = np.unique(erows.cpu().numpy()[idx], return_inverse=True)
+    table = stack.index_select(0, torch.from_numpy(uniq).to(stack.device))
+    if cols is not None:
+        table = table.index_select(1, torch.from_numpy(cols).to(stack.device))
+    return ref.gather_aggregate_fma_np(
+        table.cpu().numpy(), inv.astype(np.int32),
+        np.repeat(np.arange(rows.size), hi - lo), w.cpu().numpy()[idx],
+        rows.size, threads=os.cpu_count() or 1)
 
 
 def dense_report(r: dict) -> str:
@@ -347,28 +424,36 @@ def scatter_row_sets(plan):
 
 
 # ----------------------------------------------------------------- phase A
+def main_unit(plan, dev):
+    """The main path's shapes: the largest layer-0 unit of ``plan``, its
+    stack row map (exactly what the runner stages for that unit) and its
+    real edges. Returns ``(unit, idx, total, erows, dst, w, n_dst)``: the
+    stack has ``total + 1`` rows (the last the zero row), ``erows`` are the
+    edges' stack rows."""
+    import torch
+
+    from repro_torch.runtime.forward import unit_row_map
+
+    u = max(plan.units, key=lambda u: (u.e_pad, u.n_req))
+    idx_np, _, total = unit_row_map(plan, u)
+    idx = torch.from_numpy(idx_np).to(dev)
+    topo = u.topo
+    e = topo.n_real_edges
+    return (u, idx, total, idx.index_select(0, topo.src[:e]), topo.dst[:e],
+            topo.edge_weight[:e], topo.n_dst)
+
+
 def phase_a(plan, d_in: int, dev):
     import numpy as np
     import torch
 
     from repro_torch.kernels.gather_scatter import ops, ref
-    from repro_torch.runtime.forward import unit_row_map
 
     print("phase A: kernels vs plain versions", flush=True)
-    # the main path's shapes: the largest layer-0 unit's stack and row map
-    # (exactly what the runner stages for that unit)
-    u = max(plan.units, key=lambda u: (u.e_pad, u.n_req))
-    idx_np, _, total = unit_row_map(plan, u)
+    u, idx, total, erows, dst, w, n_dst = main_unit(plan, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     stack = torch.randn((total + 1, d_in), generator=gen, device=dev)
     stack[total] = 0
-    idx = torch.from_numpy(idx_np).to(dev)
-    topo = u.topo
-    e = topo.n_real_edges
-    erows = idx.index_select(0, topo.src[:e])
-    dst = topo.dst[:e]
-    w = topo.edge_weight[:e]
-    n_dst = topo.n_dst
     results = {}
 
     # ---- gather_rows: bitwise
@@ -383,13 +468,20 @@ def phase_a(plan, d_in: int, dev):
     uniq = int(torch.unique(idx).numel())
     nbytes = uniq * d_in * 4 + R * 4 + R * d_in * 4
     b_ms, b_by = bound(nbytes, 0.0)
+    q = queued_ms({"gather_rows": lambda: ops.gather_rows(stack, idx),
+                   "index_select": lambda: torch.index_select(stack, 0, idx)})
     results["gather_rows"] = dict(
         max_abs_err=float((k - p).abs().max()),
-        ms=time_ms(lambda: ops.gather_rows(stack, idx)),
+        ms=q["gather_rows"],
         plain_ms=time_ms(lambda: ref.gather_rows_ref(stack, idx)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: torch.index_select(stack, 0, idx)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=q["index_select"],
     )
+    print(f"  gather_rows queued (median of 200 launches each, a b b a): "
+          f"kernel {q['gather_rows']:.4f} ms, index_select "
+          f"{q['index_select']:.4f} ms; time_ms's 5-call means: kernel "
+          f"{time_ms(lambda: ops.gather_rows(stack, idx)):.4f}, index_select "
+          f"{time_ms(lambda: torch.index_select(stack, 0, idx)):.4f}",
+          flush=True)
     del k, p
 
     # ---- gather_aggregate: bitwise vs the FMA oracle at small shapes
@@ -425,6 +517,36 @@ def phase_a(plan, d_in: int, dev):
           f"E={dst.shape[0]} n_dst={n_dst} D={d_in} (max err "
           f"{float(err.max()):.3e}, max deg {int(deg.max())})")
     del mag, tol
+    # ---- the main shape, bitwise vs the exact FMA oracle: every heavy row
+    # (split into 32-column slabs) at ORACLE_SLAB_COLS seeded columns of
+    # each slab, so every work item of the split path, and a seeded sample
+    # of ordinary rows at every column
+    deg_np = deg.cpu().numpy().astype(np.int64)
+    heavy = np.flatnonzero(deg_np > ops.HEAVY_EDGES)
+    pick = np.random.default_rng(0)
+    sample = np.sort(pick.choice(np.flatnonzero(deg_np <= ops.HEAVY_EDGES),
+                                 ORACLE_ORDINARY_ROWS, replace=False))
+    cols = np.concatenate([
+        c0 + np.sort(pick.choice(min(32, d_in - c0), min(ORACLE_SLAB_COLS,
+                                                           d_in - c0),
+                                 replace=False))
+        for c0 in range(0, d_in, 32)])
+    t0 = time.perf_counter()
+    want_h, twice = fma_oracle_rows(stack, erows, dst, w, heavy, cols)
+    want_s, twice_s = fma_oracle_rows(stack, erows, dst, w, sample)
+    got_h = k.index_select(0, torch.from_numpy(heavy).to(dev)).index_select(
+        1, torch.from_numpy(cols).to(dev)).cpu().numpy()
+    got_s = k.index_select(0, torch.from_numpy(sample).to(dev)).cpu().numpy()
+    check(np.array_equal(got_h, want_h) and np.array_equal(got_s, want_s),
+          f"gather_aggregate bitwise vs the exact FMA oracle at the main "
+          f"shape on its {heavy.size} rows of more than {ops.HEAVY_EDGES} "
+          f"edges ({int(deg_np[heavy].sum())} of {dst.shape[0]} edges, max "
+          f"{int(deg_np.max())}) at {cols.size} seeded columns "
+          f"({ORACLE_SLAB_COLS} of each 32-column slab) and "
+          f"{ORACLE_ORDINARY_ROWS} seeded ordinary rows at all {d_in} (the "
+          f"float64 route would round {twice + twice_s} steps twice; oracle "
+          f"{time.perf_counter() - t0:.1f} s)")
+    del got_h, got_s, want_h, want_s
     E = dst.shape[0]
     uniq = int(torch.unique(erows).numel())
     nbytes = uniq * d_in * 4 + 12 * E + n_dst * d_in * 4
@@ -448,8 +570,22 @@ def phase_a(plan, d_in: int, dev):
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: torch.sparse.mm(A, stack)),
     )
-    del k, p, err, A
+    del k, p, err
     del stack
+    # ---- the same edges at layers 1-2's width: kernel, bound and library
+    d1 = DIMS[1]
+    narrow = torch.randn((total + 1, d1), generator=gen, device=dev)
+    narrow[total] = 0
+    n_ms, n_by = bound(uniq * d1 * 4 + 12 * E + n_dst * d1 * 4,
+                       2.0 * E * d1)
+    check(torch.equal(ops.gather_aggregate(narrow, erows, dst, w, n_dst),
+                      ops.gather_aggregate(narrow, erows, dst, w, n_dst)),
+          f"gather_aggregate at D={d1} deterministic (rerun bitwise)")
+    print(f"  gather_aggregate at D={d1}: kernel "
+          f"{time_ms(lambda: ops.gather_aggregate(narrow, erows, dst, w, n_dst)):.4f}"
+          f" ms, bound {n_ms:.4f} ms ({n_by}), library CSR torch.sparse.mm "
+          f"{time_ms(lambda: torch.sparse.mm(A, narrow)):.4f} ms", flush=True)
+    del narrow, A
     results["scatter_add"] = phase_a_scatter(plan, DIMS[1], dev)
     results["edge_softmax"] = phase_a_softmax(u, dev)
     results["embedding_bag"] = phase_a_bag(dev)
@@ -510,13 +646,20 @@ def phase_a_scatter(plan, d: int, dev) -> dict:
     U = int(torch.unique(rows).numel())
     b_ms, b_by = bound(R * d * 4 + 2 * U * d * 4 + 4 * R, float(R * d))
     kb, pb, lb = base.clone(), base.clone(), base.clone()
+    q = queued_ms({"scatter_add": lambda: ops.scatter_add_(kb, rows, values),
+                   "index_add_": lambda: lb.index_add_(0, rows, values)})
     out = dict(
         max_abs_err=float((k - p).abs().max()),
-        ms=time_ms(lambda: ops.scatter_add_(kb, rows, values)),
+        ms=q["scatter_add"],
         plain_ms=time_ms(lambda: ref.scatter_add_ref(pb, rows, values)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: lb.index_add_(0, rows, values)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=q["index_add_"],
     )
+    print(f"  scatter_add queued (median of 200 launches each, a b b a): "
+          f"kernel {q['scatter_add']:.4f} ms, index_add_ "
+          f"{q['index_add_']:.4f} ms; time_ms's 5-call means: kernel "
+          f"{time_ms(lambda: ops.scatter_add_(kb, rows, values)):.4f}, "
+          f"index_add_ {time_ms(lambda: lb.index_add_(0, rows, values)):.4f}",
+          flush=True)
     del k, p, kb, pb, lb, base, values
     return out
 
@@ -567,10 +710,12 @@ def phase_a_softmax(u, dev) -> dict:
     deg = torch.bincount(dst.long(), minlength=n_dst).to(torch.float32)
     tol = (deg.index_select(0, dst.long())[:, None] + 4) * 2.0 ** -23 * p.abs()
     err = (k - p).abs()
+    n_heavy = int((deg > ops.HEAVY_EDGES).sum())
     check(bool(torch.all(err <= tol)),
           f"edge_softmax within (deg+4)*2^-23 relative of plain per element "
           f"at E={e} H={GAT_HEADS} n_dst={n_dst} (max err "
-          f"{float(err.max()):.3e}, max deg {int(deg.max())})")
+          f"{float(err.max()):.3e}, max deg {int(deg.max())}; {n_heavy} rows "
+          f"of more than {ops.HEAVY_EDGES} edges take a block)")
     # scores in and attention out once, the row ids once; sub, exp, add and
     # divide per element
     b_ms, b_by = bound(2 * e * GAT_HEADS * 4 + 4 * e, 4.0 * e * GAT_HEADS)

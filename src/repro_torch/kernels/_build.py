@@ -7,8 +7,9 @@ use into a shared library with a plain C interface::
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so <name>.cu
 
 into ``kernels/build/<name>-<hash>/`` (listed in ``.gitignore``), keyed by a
-hash of the sources and the flags, so an edited source rebuilds and an
-unchanged one is reused within a checkout. ``nvcc``'s own output (``-Xptxas
+hash of the sources, the headers the packages share (``kernels/csrc/*.cuh``)
+and the flags, so an edited source rebuilds and an unchanged one is reused
+within a checkout. ``nvcc``'s own output (``-Xptxas
 -v``: registers, shared memory, spills per kernel) is kept beside the
 library as ``build.log``. A failed build raises; nothing falls back.
 Each package has its own build lock, so packages loaded from several
@@ -59,7 +60,7 @@ def sources(name: str) -> list:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for p in sources(name):
+    for p in sources(name) + sorted((KERNELS_DIR / "csrc").glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

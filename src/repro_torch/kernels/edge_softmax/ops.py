@@ -20,10 +20,15 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.edge_softmax import ref
+from repro_torch.kernels.heavy_rows import heavy_slots, plan_scratch
 
 # launches since the last reset_launches(); bumped only where the kernel is
 # launched (never by the plain version)
 LAUNCHES: Dict[str, int] = {"edge_softmax": 0}
+
+# a row with more edges is a heavy row and takes a whole block (chosen on
+# the H100: scripts/pt_heavy_rows.py)
+HEAVY_EDGES = 512
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -40,7 +45,9 @@ def _lib():
     global _bound
     if _bound is None:
         lib = _build.load("edge_softmax")
-        lib.edge_softmax_f32.argtypes = [_P, _P, _P, _I64, _I64, _I64, _P]
+        lib.edge_softmax_f32.argtypes = [
+            _P, _P, _P, _I64, _I64, _I64, _P, _P, _I64, _I64, _P,
+        ]
         lib.edge_softmax_f32.restype = ctypes.c_int
         _bound = lib
     return _bound
@@ -64,8 +71,17 @@ def edge_softmax(scores: torch.Tensor, dst: torch.Tensor,
     the exponentials clamped at ``1e-30``).
 
     ``dst`` ``(E,)`` int32 must be sorted ascending with values in
-    ``[0, n_dst)``: the kernel finds each row's edges by binary search, and
-    an edge outside every row's range would be left unwritten."""
+    ``[0, n_dst)``: the kernel takes each row's edges from the row plan its
+    launch makes first on the device (``kernels/csrc/heavy_rows.cuh``,
+    whose plain version is :func:`~repro_torch.kernels.heavy_rows.
+    plan_rows`; no host synchronisation) into scratch allocated here, and
+    an edge outside every row's range would be left unwritten.
+
+    On the card a thread takes an edge's heads together (up to 8 a launch),
+    three passes over a row's edges in all (max, sum, write). A row with
+    more than :data:`HEAVY_EDGES` (512) edges takes a whole 512-thread
+    block (persistent blocks walk the heavy list, those with more than 16
+    times as many edges first); every other row one warp, in row order."""
     if scores.dim() != 2 or dst.dim() != 1:
         raise ValueError(
             f"edge_softmax wants scores (E, H) and dst (E,); got "
@@ -84,9 +100,12 @@ def edge_softmax(scores: torch.Tensor, dst: torch.Tensor,
     _check("scores", scores, torch.float32, dev)
     _check("dst", dst, torch.int32, dev)
     out = torch.empty_like(scores)
+    starts, heavy = plan_scratch(E, n_dst, HEAVY_EDGES, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().edge_softmax_f32(
         scores.data_ptr(), dst.data_ptr(), out.data_ptr(), E, n_dst, H,
+        starts.data_ptr(), heavy.data_ptr(),
+        heavy_slots(E, n_dst, HEAVY_EDGES), HEAVY_EDGES,
         stream,
     )
     if err != 0:

@@ -21,12 +21,20 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.gather_scatter import ref
+from repro_torch.kernels.heavy_rows import (
+    heavy_slots, plan_rows, plan_scratch,
+)
 
 # launches per kernel since the last reset_launches(); bumped only where a
 # kernel is launched (never by the plain versions)
 LAUNCHES: Dict[str, int] = {
     "gather_rows": 0, "gather_aggregate": 0, "scatter_add": 0,
 }
+
+# gather_aggregate: a row with more edges is a heavy row, split into
+# 32-column slabs spread over the card (chosen on the H100:
+# scripts/pt_heavy_rows.py)
+HEAVY_EDGES = 256
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -46,11 +54,13 @@ def _lib():
         lib.gather_rows_f32.argtypes = [_P, _P, _P, _I64, _I64, _P]
         lib.gather_rows_f32.restype = ctypes.c_int
         lib.gather_aggregate_f32.argtypes = [
-            _P, _P, _P, _P, _P, _I64, _I64, _I64, _P,
+            _P, _P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _I64, _I64, _P,
         ]
         lib.gather_aggregate_f32.restype = ctypes.c_int
         lib.scatter_add_f32.argtypes = [_P, _P, _P, _I64, _I64, _P]
         lib.scatter_add_f32.restype = ctypes.c_int
+        lib.heavy_rows_plan.argtypes = [_P, _I64, _I64, _I64, _P, _P, _I64, _P]
+        lib.heavy_rows_plan.restype = ctypes.c_int
         _bound = lib
     return _bound
 
@@ -70,6 +80,29 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
 def _raise_on(err: int, kernel: str) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
+
+
+def row_plan(dst: torch.Tensor, n_dst: int, heavy_edges: int):
+    """The row plan that ``gather_aggregate`` and ``edge_softmax`` make
+    inside their launch, alone: the card's planner on a CUDA tensor, its
+    plain version :func:`~repro_torch.kernels.heavy_rows.plan_rows` on a
+    CPU one. Returns ``(starts, heavy)``. Not counted in :data:`LAUNCHES`:
+    no path runs it by itself."""
+    if not dst.is_cuda:
+        return plan_rows(dst, n_dst, heavy_edges)
+    _check("dst", dst, torch.int32, 1, dst.device)
+    if heavy_edges < 0:
+        raise ValueError(f"heavy_edges must be >= 0, got {heavy_edges}")
+    E = dst.shape[0]
+    starts, heavy = plan_scratch(E, n_dst, heavy_edges, dst.device)
+    k = heavy_slots(E, n_dst, heavy_edges)
+    err = _lib().heavy_rows_plan(
+        dst.data_ptr(), E, n_dst, heavy_edges, starts.data_ptr(),
+        heavy.data_ptr(), k,
+        torch.cuda.current_stream(dst.device).cuda_stream,
+    )
+    _raise_on(err, "heavy_rows_plan")
+    return starts, heavy[:k]
 
 
 def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -106,11 +139,24 @@ def gather_aggregate(
 ) -> torch.Tensor:
     """``out[dst[e]] += w[e] * table[erows[e]]`` over zeros, fused: each
     output row sums its edges in edge order, one fused multiply-add per
-    edge (bitwise the ``ref.gather_aggregate_ref_fma`` oracle).
+    edge (bitwise the exact oracle ``ref.gather_aggregate_fma_np``).
 
     ``dst`` must be sorted ascending with values in ``[0, n_dst)`` (the
     real-edge prefix of a plan's topology is; the dispatcher passes only
-    that prefix)."""
+    that prefix).
+
+    On the card the kernel's launch first makes the row plan on the device
+    (``kernels/csrc/heavy_rows.cuh``, whose plain version is
+    :func:`~repro_torch.kernels.heavy_rows.plan_rows`; no host
+    synchronisation) into scratch allocated here. A row with more than
+    :data:`HEAVY_EDGES` (256) edges is heavy: it is split into slabs of 32
+    lanes' columns (128 columns at D % 4 == 0 with 16-byte aligned bases,
+    else 32), each a work item of a persistent grid, rows with more than
+    16 times as many edges first, whose source slabs stream through a
+    64 KB shared-memory ring (``cp.async``, 128 edges ahead of the FMA
+    chain at 128 columns, 512 at 32). Every other row takes one block, in
+    row order. Each output element is still one FMA chain in edge order,
+    so the split changes no bit."""
     if table.dim() != 2 or erows.dim() != 1 or dst.dim() != 1 or w.dim() != 1:
         raise ValueError("gather_aggregate wants table (N, D) and 1-D edges")
     E, D = erows.shape[0], table.shape[1]
@@ -128,10 +174,12 @@ def gather_aggregate(
     _check("dst", dst, torch.int32, 1, dev)
     _check("w", w, torch.float32, 1, dev)
     out = torch.empty((n_dst, D), dtype=table.dtype, device=dev)
+    starts, heavy = plan_scratch(E, n_dst, HEAVY_EDGES, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().gather_aggregate_f32(
         table.data_ptr(), erows.data_ptr(), dst.data_ptr(), w.data_ptr(),
-        out.data_ptr(), E, n_dst, D, stream,
+        out.data_ptr(), E, n_dst, D, starts.data_ptr(), heavy.data_ptr(),
+        heavy_slots(E, n_dst, HEAVY_EDGES), HEAVY_EDGES, stream,
     )
     _raise_on(err, "gather_aggregate")
     LAUNCHES["gather_aggregate"] += 1

@@ -95,6 +95,119 @@ def test_cuda_gather_aggregate_rows_without_edges_are_zero(cuda_dev):
     assert torch.count_nonzero(out[[0, 1, 3, 4, 6]]) == 0
 
 
+def _heavy_agg_inputs(rng, n, nd, D, hubs, E=2000):
+    """``_agg_inputs`` plus, for each ``(row, k)`` in ``hubs``, ``k`` more
+    edges into ``row`` (power-law hub rows above the split threshold)."""
+    table, erows, dst, w = _agg_inputs(rng, n, E, nd, D)
+    extra = sum(k for _, k in hubs)
+    dst = np.sort(np.concatenate(
+        [dst, *(np.full(k, r, np.int32) for r, k in hubs)])).astype(np.int32)
+    erows = np.concatenate([erows, rng.integers(0, n, extra).astype(np.int32)])
+    w = np.concatenate([w, rng.standard_normal(extra, dtype=np.float32)])
+    return table, erows, dst, w
+
+
+def _table_at(dev, table, offset):
+    """``table`` on the card, its base ``offset`` floats past an aligned one
+    (offset 1: not 16-byte aligned, the kernels' scalar path)."""
+    flat = torch.empty(table.size + offset, device=dev)
+    t = flat[offset:].view(table.shape)
+    t.copy_(torch.from_numpy(table))
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("D", [1024, 256, 129])
+def test_cuda_gather_aggregate_heavy_rows_bitwise_vs_fma_oracle(cuda_dev, D,
+                                                               offset, rng):
+    """One 30,000-edge hub and one 600-edge row (both above the split
+    threshold) among ordinary rows: bitwise the FMA oracle, and on a rerun,
+    at aligned and offset table bases."""
+    nd = 50
+    table, erows, dst, w = _heavy_agg_inputs(
+        rng, 300, nd, D, [(17, 30000), (nd - 1, 600)])
+    assert 600 > ops.HEAVY_EDGES
+    t = _table_at(cuda_dev, table, offset)
+    er, ds, ws = _on(cuda_dev, erows, dst, w)
+    before = ops.LAUNCHES["gather_aggregate"]
+    got = ops.gather_aggregate(t, er, ds, ws, nd)
+    again = ops.gather_aggregate(t, er, ds, ws, nd)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["gather_aggregate"] == before + 2
+    assert torch.equal(got, again)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), ref.gather_aggregate_ref_fma(table, erows, dst, w, nd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_dst,E,T,hubs", [
+    (500, 4000, 16, ()), (300, 2000, 64, ((7, 3000), (250, 90))),
+    (64, 64, 0, ()), (40, 0, 3, ()), (3000, 20000, 256, ((0, 5000),)),
+    (5000, 30000, 1, ()),
+])
+def test_cuda_row_plan_equals_its_plain_version(cuda_dev, n_dst, E, T, hubs,
+                                                rng):
+    """The planner both kernels launch first: row starts and the heavy
+    list (huge rows first, row order, -1 after) bitwise its plain
+    version."""
+    dst = np.sort(np.concatenate(
+        [rng.integers(0, n_dst, E), *(np.full(k, r) for r, k in hubs)]
+    )).astype(np.int32)
+    got = ops.row_plan(torch.from_numpy(dst).to(cuda_dev), n_dst, T)
+    want = ops.row_plan(torch.from_numpy(dst), n_dst, T)
+    torch.cuda.synchronize()
+    for g, wnt in zip(got, want):
+        assert torch.equal(g.cpu(), wnt)
+
+
+@pytest.mark.cuda
+def test_cuda_gather_aggregate_rounds_each_edge_once(cuda_dev):
+    """Two edges whose float64 sum lands on a float32 tie: the kernel's
+    fused multiply-add rounds once (2^70 + 2^47), as the exact oracle does;
+    the float64 route rounds twice (2^70 + 2^48)."""
+    table = np.array([[1.0], [2.0 ** 23 - 1]], np.float32)
+    erows, dst = np.array([0, 1], np.int32), np.zeros(2, np.int32)
+    w = np.array([2.0 ** 70 + 2.0 ** 47, 2.0 ** 23 + 1], np.float32)
+    got = ops.gather_aggregate(*_on(cuda_dev, table, erows, dst, w), 1)
+    want, twice = ref.gather_aggregate_fma_np(table, erows, dst, w, 1)
+    assert twice == 1
+    assert got.item() == want[0, 0] == np.float32(2.0 ** 70 + 2.0 ** 47)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1024, 36, 129])
+def test_cuda_gather_aggregate_many_heavy_rows_bitwise(cuda_dev, D, rng,
+                                                       monkeypatch):
+    """A threshold of 3 edges makes most rows heavy: more (row, slab) items
+    than the persistent grid has blocks, several a block, stages that wrap
+    around the ring across items, short last stages."""
+    monkeypatch.setattr(ops, "HEAVY_EDGES", 3)
+    nd = 300
+    table, erows, dst, w = _agg_inputs(rng, 400, 6000, nd, D)
+    got = ops.gather_aggregate(*_on(cuda_dev, table, erows, dst, w), nd)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), ref.gather_aggregate_ref_fma(table, erows, dst, w, nd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1024, 129])
+def test_cuda_gather_aggregate_rows_without_edges_are_zero_beside_hubs(
+        cuda_dev, D, rng):
+    nd = 40
+    table, erows, dst, w = _heavy_agg_inputs(rng, 100, nd, D, [(3, 5000)],
+                                             E=300)
+    keep = ~np.isin(dst, [0, 1, 20, nd - 1])
+    erows, dst, w = erows[keep], dst[keep], w[keep]
+    empty = np.setdiff1d(np.arange(nd), dst)
+    assert empty.size >= 4
+    out = ops.gather_aggregate(*_on(cuda_dev, table, erows, dst, w), nd)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(out[torch.from_numpy(empty).to(cuda_dev)]) == 0
+    assert torch.count_nonzero(out[3]) > 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,r,D", [
     (64, 200, 16), (300, 77, 48), (10, 1, 7), (40, 90, 7), (257, 511, 1024),
@@ -169,6 +282,49 @@ def test_cuda_edge_softmax_within_bound_of_oracle(cuda_dev, n, E, H, hub,
     assert np.all(err <= tol), float((err / np.maximum(tol, 1e-45)).max())
     plain = es_ref.edge_softmax_ref(s_d, d_d, n)
     torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-6)
+
+
+def _softmax_check(cuda_dev, scores, dst, n, offset=0):
+    """The kernel within ``(deg + 4 + |s - m|) * 2^-23`` relative of the
+    float64 oracle (as above), bitwise on a rerun; ``scores`` at a base
+    ``offset`` floats past an aligned one."""
+    s_d = _table_at(cuda_dev, scores, offset)
+    d_d = torch.from_numpy(dst).to(cuda_dev)
+    got = es_ops.edge_softmax(s_d, d_d, n)
+    again = es_ops.edge_softmax(s_d, d_d, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = es_ref.edge_softmax_np(scores, dst, n)
+    deg = np.bincount(dst, minlength=n)[dst][:, None]
+    smax = np.full((n, scores.shape[1]), -np.inf)
+    np.maximum.at(smax, dst, scores.astype(np.float64))
+    tol = (deg + 4 + np.abs(scores - smax[dst])) * 2.0 ** -23 * np.abs(want)
+    err = np.abs(got.cpu().numpy().astype(np.float64) - want)
+    assert np.all(err <= tol), float((err / np.maximum(tol, 1e-45)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("H", [1, 3, 4, 8, 12])
+def test_cuda_edge_softmax_hub_row_takes_a_block(cuda_dev, H, offset, rng):
+    """A 30,000-edge hub and a 700-edge row, both above the block
+    threshold, among warp rows and empty rows; 12 heads run as two head
+    groups (8 + 4)."""
+    scores, dst = _softmax_inputs(rng, 600, 3000, H, hub=30000)
+    dst = np.sort(np.concatenate([dst, np.full(700, 10, np.int32)]))
+    scores = rng.standard_normal((dst.size, H), dtype=np.float32)
+    assert 700 > es_ops.HEAVY_EDGES
+    _softmax_check(cuda_dev, scores, dst, 600, offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [1, 4, 8])
+def test_cuda_edge_softmax_many_block_rows(cuda_dev, H, rng, monkeypatch):
+    """A threshold of 3 edges: most rows take a block, the list's tail
+    (rows of 3 edges or fewer) exits and warps take those rows."""
+    monkeypatch.setattr(es_ops, "HEAVY_EDGES", 3)
+    scores, dst = _softmax_inputs(rng, 500, 4000, H)
+    _softmax_check(cuda_dev, scores, dst, 500)
 
 
 @pytest.mark.cuda

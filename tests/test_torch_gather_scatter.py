@@ -96,6 +96,92 @@ def test_fma_oracle_copy_is_bitwise_the_reference_oracle(rng):
         ref.gather_aggregate_ref_fma(table, erows, dst, w, 20), want)
 
 
+def _double_rounding_case():
+    """Two edges into one row where the float64 route rounds twice: the
+    first edge makes acc = 2^70 + 2^47 (an odd float32 mantissa), the
+    second adds (2^23 + 1)(2^23 - 1) = 2^46 - 1, just under the float32
+    midpoint 2^70 + 2^47 + 2^46. One rounding gives 2^70 + 2^47; the
+    float64 sum rounds up onto the midpoint, and then ties-to-even gives
+    2^70 + 2^48."""
+    table = np.array([[1.0], [2.0 ** 23 - 1]], np.float32)
+    erows = np.array([0, 1], np.int32)
+    dst = np.zeros(2, np.int32)
+    w = np.array([2.0 ** 70 + 2.0 ** 47, 2.0 ** 23 + 1], np.float32)
+    return table, erows, dst, w
+
+
+@pytest.mark.parametrize("threads", [1, 3])
+@pytest.mark.parametrize("n,E,nd,D", [
+    (64, 400, 32, 16), (10, 30, 5, 129), (6, 1, 3, 8), (50, 300, 20, 24),
+])
+def test_exact_fma_oracle_matches_the_f64_oracles(n, E, nd, D, threads, rng):
+    """Where no float64 sum lands on a float32 tie (none does here), the
+    exact oracle is bitwise the float64 one and the reference package's."""
+    table, erows, dst, w = _agg_inputs(rng, n, E, nd, D)
+    got, twice = ref.gather_aggregate_fma_np(table, erows, dst, w, nd,
+                                             threads=threads)
+    assert twice == 0
+    np.testing.assert_array_equal(
+        got, ref.gather_aggregate_ref_fma(table, erows, dst, w, nd))
+    np.testing.assert_array_equal(
+        got, jref.gather_aggregate_ref_fma(table, erows, dst, w, nd))
+
+
+def test_exact_fma_oracle_resolves_a_double_rounding():
+    table, erows, dst, w = _double_rounding_case()
+    got, twice = ref.gather_aggregate_fma_np(table, erows, dst, w, 1)
+    assert twice == 1
+    assert got[0, 0] == np.float32(2.0 ** 70 + 2.0 ** 47)
+    assert ref.fma32_exact(w[1], table[1, 0], w[0]) == got[0, 0]
+    # the float64 route (this port's copy and the reference's) rounds twice
+    for oracle in (ref.gather_aggregate_ref_fma, jref.gather_aggregate_ref_fma):
+        assert oracle(table, erows, dst, w, 1)[0, 0] == np.float32(
+            2.0 ** 70 + 2.0 ** 48)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_exact_fma_oracle_vs_rational_arithmetic(seed):
+    """Against ``fma32_exact`` (exact fractions) step by step, on chains
+    built to hit float32 ties: products of values with few mantissa bits
+    (multiples of 2^-6 in [-2, 2)) against accumulators of every size."""
+    rng = np.random.default_rng(seed)
+    E, D = 60, 40
+    table = (rng.integers(-128, 128, (E, D)) / 64).astype(np.float32)
+    w = (rng.integers(-128, 128, E) * 2.0 ** rng.integers(-30, 30, E)
+         ).astype(np.float32)
+    dst = np.zeros(E, np.int32)
+    got, _ = ref.gather_aggregate_fma_np(table, np.arange(E, dtype=np.int32),
+                                         dst, w, 1)
+    for c in range(D):
+        acc = np.float32(0)
+        for e in range(E):
+            acc = ref.fma32_exact(w[e], table[e, c], acc)
+        assert got[0, c] == acc, c
+
+
+def test_fma32_exact_rounds_once_to_nearest_even():
+    one = np.float32(1.0)
+    # 1 + 2^-24 is a float32 tie: to even (1.0); 1 + 3 * 2^-24 to 1 + 2^-22
+    assert ref.fma32_exact(np.float32(2.0 ** -24), one, one) == one
+    assert ref.fma32_exact(np.float32(3 * 2.0 ** -24), one, one) == \
+        np.float32(1 + 2.0 ** -22)
+    # just above the tie: up
+    assert ref.fma32_exact(np.float32(2.0 ** -24 + 2.0 ** -47), one, one) \
+        == np.float32(1 + 2.0 ** -23)
+
+
+def test_exact_fma_oracle_keeps_edge_order_and_empty_rows(rng):
+    table, erows, dst, w = _agg_inputs(rng, 30, 200, 12, 5)
+    dst[dst == 4] = 5                                   # row 4 has no edge
+    perm = rng.permutation(dst.size)                    # unsorted dst
+    got, _ = ref.gather_aggregate_fma_np(table, erows[perm], dst[perm],
+                                         w[perm], 12)
+    np.testing.assert_array_equal(
+        got, ref.gather_aggregate_ref_fma(table, erows[perm], dst[perm],
+                                          w[perm], 12))
+    assert not got[4].any()
+
+
 def test_gather_aggregate_degenerate_returns_zeros(rng):
     table = torch.from_numpy(rng.standard_normal((8, 16), dtype=np.float32))
     e = torch.zeros(0, dtype=torch.int32)
