@@ -126,7 +126,15 @@ and spill report and checks that the bf16 flash kernel's SASS holds
   straight steps. Prints latencies, walls, lookups/s, achieved TFLOP/s
   (``recsys_model_flops``), peak device GB, one step's gradient and AdamW
   times apart, and ``scatter_add`` bitwise vs plain with times at the user
-  table gradient's shape.
+  table gradient's shape. After each counted run, ``embedding_bag`` at
+  every shape that run launched it at (``bag_shape``: serve_p99,
+  serve_bulk, a corpus chunk, a retrieval query, the training user and
+  item towers, the resume's user and item towers), on that run's tables
+  and ids: bitwise its plain version (NaN equal to NaN), its time
+  (``queued_ms`` under 0.1 ms, else ``time_ms``), the distinct-row bound
+  (``torch.unique``), the one-read-per-lookup floor,
+  ``F.embedding_bag``'s time and the shape's launches, then Σ launches ×
+  (time − bound).
 - Phase E, small: the same widths on a 20,000-node graph, where a dense
   whole-graph autograd oracle fits (float64, on the card): for GCN and
   GAT, each mode's loss within 1e-4 and gradients within 5e-4 of it (where
@@ -754,6 +762,73 @@ def nan_equal(a, b) -> bool:
     import torch
 
     return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def bits_equal(a, b) -> bool:
+    """Equal bits, NaN where the other is NaN (unlike ``nan_equal``, -0 and
+    +0 differ)."""
+    import torch
+
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def bag_shape(label: str, table, ids, launches: int) -> dict:
+    """``embedding_bag`` (mean, the towers' mode) at one shape the main path
+    launches it at, on that path's table and ids: bitwise its plain version
+    (NaN equal to NaN), then its time, the distinct-row bound (each distinct
+    row read once, ``torch.unique``), the floor with one row read per
+    lookup, and ``F.embedding_bag``'s time. Times under 0.1 ms (a first
+    ``time_ms`` reading) are ``queued_ms`` medians, the rest ``time_ms``
+    means. Printed as one JSON line; ``launches`` is the path's count at
+    this shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import ops, ref
+
+    ids = ids.reshape(-1, ids.shape[-1]).contiguous()
+    (n_bags, bag), (V, D) = ids.shape, table.shape
+    with torch.no_grad():
+        table = table.detach()
+        k = ops.embedding_bag(table, ids, "mean")
+        p = ref.embedding_bag_ref(table, ids, "mean")
+        torch.cuda.synchronize()
+        check(bits_equal(k, p), f"embedding_bag at {label}: bitwise its "
+              f"plain version (ids {tuple(ids.shape)}, table {V} x {D})")
+        del k, p
+        n_ids = n_bags * bag
+        rows = ids.long()
+        rows = torch.where(rows < 0, rows + V, rows)
+        uniq = int(torch.unique(rows[(rows >= 0) & (rows < V)]).numel())
+        out_bytes = n_bags * D * 4
+        b_ms, b_by = bound(uniq * D * 4 + 4 * n_ids + out_bytes,
+                           float(n_ids * D))
+        floor_ms, _ = bound(n_ids * D * 4 + 4 * n_ids + out_bytes, 0.0)
+        ids64 = ids.long()       # the library's index type, made untimed
+        fns = {"kernel": lambda: ops.embedding_bag(table, ids, "mean"),
+               "library": lambda: F.embedding_bag(ids64, table,
+                                                  mode="mean")}
+        if time_ms(fns["kernel"]) < 0.1:
+            t, timer = queued_ms(fns), "queued"
+        else:
+            t, timer = {n: time_ms(f) for n, f in fns.items()}, "events"
+    row = dict(shape=label, n_bags=n_bags, bag=bag, V=V, D=D,
+               launches=launches, distinct=uniq, ms=t["kernel"], timer=timer,
+               bound_ms=b_ms, bound_by=b_by, floor_ms=floor_ms,
+               library_ms=t["library"])
+    print(f"  embedding_bag shape {json.dumps(row)}", flush=True)
+    del ids64, rows
+    return row
+
+
+def bag_shapes_summary(rows) -> None:
+    """Σ launches × (time − bound) over the shapes the main path launches
+    ``embedding_bag`` at."""
+    gap = sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in rows)
+    print(f"  embedding_bag over {len(rows)} shapes, "
+          f"{sum(r['launches'] for r in rows)} launches: "
+          f"sum launches x (ms - bound) = {gap:.4f} ms", flush=True)
 
 
 def phase_a_bag(dev) -> dict:
@@ -1522,6 +1597,7 @@ def phase_h_serving(dev):
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
     bags += warm + n_q
+    p99_ids = u
     check(unit_norms(e), f"serve_p99: finite, unit norms within 1e-5 "
           f"({tuple(e.shape)})")
     p99_p50, p99_p99 = pct(lat[warm:], 50), pct(lat[warm:], 99)
@@ -1548,7 +1624,8 @@ def phase_h_serving(dev):
           f"{lookups / wall:.4e} lookups/s, "
           f"{recsys_model_flops(cfg, 'serve', B) / wall / 1e12:.2f} TFLOP/s "
           f"(best)", flush=True)
-    del u, e
+    bulk_ids = u
+    del e
 
     # retrieval_cand: the corpus through the item tower in bulk chunks
     n_cand = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
@@ -1583,9 +1660,20 @@ def phase_h_serving(dev):
     check(counts == dict(NO_LAUNCHES, embedding_bag=bags),
           f"serving launches {counts} == {bags} embedding_bag (one per "
           f"tower call)")
-    del model, corpus, full
+    del corpus, full
+    # the bag kernel at each serving shape, after the counted run: the
+    # corpus's first chunk is build_corpus's first draw from seed 2
+    chunk_ids = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.item_vocab, (BULK, cfg.n_item_fields, cfg.bag_size)
+    ).astype(np.int32)).to(dev)
+    rows = [bag_shape("serve_p99", model.user_table, p99_ids, 5 + 50),
+            bag_shape("serve_bulk", model.user_table, bulk_ids, 3),
+            bag_shape("corpus chunk", model.item_table, chunk_ids,
+                      math.ceil(n_cand / BULK)),
+            bag_shape("retrieval query", model.user_table, u, 2 + 30 + 2)]
+    del model, p99_ids, bulk_ids, chunk_ids, u
     torch.cuda.empty_cache()
-    return counts
+    return counts, rows
 
 
 def phase_h_training(dev):
@@ -1670,7 +1758,10 @@ def phase_h_training(dev):
     torch.cuda.synchronize()
     print(f"  one more step: loss and gradients {(t1 - t0) * 1e3:.3f} ms, "
           f"AdamW {(time.perf_counter() - t1) * 1e3:.3f} ms", flush=True)
-    del model, params, opt, state, grads, i
+    del grads
+    rows = [bag_shape("training user", params.user_table, u, H_TRAIN_STEPS),
+            bag_shape("training item", params.item_table, i, H_TRAIN_STEPS)]
+    del model, params, opt, state, i
     torch.cuda.empty_cache()
     phase_h_scatter(u, cfg, dev)
     del u
@@ -1706,9 +1797,12 @@ def phase_h_training(dev):
     check(resume_counts == dict(NO_LAUNCHES, embedding_bag=80,
                                 scatter_add=80),
           f"resume launches {resume_counts}: 2 + 2 per step over 40 steps")
-    del ref_p, got_p
+    eu, ei = ebatch(0)
+    rows += [bag_shape("resume user", ref_p.user_table, eu, 40),
+             bag_shape("resume item", ref_p.item_table, ei, 40)]
+    del ref_p, got_p, eu, ei
     torch.cuda.empty_cache()
-    return {k: counts[k] + resume_counts[k] for k in counts}
+    return {k: counts[k] + resume_counts[k] for k in counts}, rows
 
 
 def phase_h_scatter(user_ids, cfg, dev) -> None:
@@ -2067,8 +2161,9 @@ def main() -> int:
     phase_e(dev)
     print(f"phase E: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    tt_serving = phase_h_serving(dev)
-    tt_training = phase_h_training(dev)
+    tt_serving, bag_rows = phase_h_serving(dev)
+    tt_training, rows = phase_h_training(dev)
+    bag_shapes_summary(bag_rows + rows)
     print(f"phase H: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     lm = phase_i(dev)

@@ -7,6 +7,8 @@ nothing of JAX, so it also runs on a machine without it::
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -461,6 +463,122 @@ def test_cuda_embedding_bag_refuses_bad_inputs(cuda_dev):
     with pytest.raises(ValueError, match="mode"):
         eb_ops.embedding_bag(t, ids, "max")
     assert eb_ops.embedding_bag(t, ids[:0]).shape == (0, 4)
+    assert eb_ops.LAUNCHES["embedding_bag"] == before
+
+
+def _bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bits (-0 differs from +0), NaN where the other is NaN."""
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _bag_bitwise(t_d, ids, mode):
+    """One kernel launch (counted once), bitwise the plain version."""
+    i_d = torch.from_numpy(ids).to(t_d.device)
+    before = eb_ops.LAUNCHES["embedding_bag"]
+    got = eb_ops.embedding_bag(t_d, i_d, mode)
+    torch.cuda.synchronize()
+    assert eb_ops.LAUNCHES["embedding_bag"] == before + 1
+    assert _bits(got, eb_ref.embedding_bag_ref(t_d, i_d, mode))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("D", [1, 7, 129, 256, 1024])
+def test_cuda_embedding_bag_tiles_share_rows_bitwise(cuda_dev, D, mode, rng):
+    """Repeats inside a bag and across the bags of a tile (the first tile's
+    128 slots all one id), -1 beside V - 1 in one tile, a repeated invalid
+    id, a -0 row, and 43 bags (not a multiple of the tile of 8)."""
+    V, n_bags, bag = 300, 43, 16
+    table = rng.standard_normal((V, D), dtype=np.float32)
+    table[5] = -0.0
+    ids = rng.integers(0, V, (n_bags, bag)).astype(np.int32)
+    ids[:8] = 7                                  # one tile, one row
+    ids[8:16, ::2] = ids[8:16, :1]               # repeats inside bags
+    ids[16:24, :4] = 11                          # and across them
+    ids[24, :2], ids[25, 3] = [-1, V - 1], -1    # one row, two ids
+    ids[26, 1] = ids[26, 9] = ids[27, 0] = V + 3  # a repeated invalid id
+    ids[28] = 5
+    t_d = torch.from_numpy(table).to(cuda_dev)
+    got = _bag_bitwise(t_d, ids, mode)
+    assert torch.isnan(got[26:28]).all() and not torch.isnan(got[:26]).any()
+    assert torch.signbit(got[28]).all()          # -0 summed from row 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("bag", [1, 40, 128, 300, 600])
+def test_cuda_embedding_bag_bag_sizes_bitwise(cuda_dev, bag, mode, rng):
+    """One id a bag, 40, a fill's most (128), and bags that span three and
+    five fills, their sums carried between fills."""
+    V, D, n_bags = 1000, 68, 21
+    table = rng.standard_normal((V, D), dtype=np.float32)
+    ids = rng.integers(-V, V, (n_bags, bag)).astype(np.int32)
+    if bag > 1:
+        ids[::3, bag // 2:] = ids[::3, :1]
+    ids[4, -1] = -V - 1                          # NaN in the last fill
+    _bag_bitwise(torch.from_numpy(table).to(cuda_dev), ids, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [8, 256])
+def test_cuda_embedding_bag_unaligned_view_bitwise(cuda_dev, D, rng):
+    """A table view one float past an aligned base takes single floats: the
+    same bits as the aligned table."""
+    V, n_bags, bag = 500, 37, 16
+    table = rng.standard_normal((V, D), dtype=np.float32)
+    ids = rng.integers(0, V, (n_bags, bag)).astype(np.int32)
+    ids[::4, :8] = ids[::4, :1]
+    aligned = _bag_bitwise(_table_at(cuda_dev, table, 0), ids, "mean")
+    view = _table_at(cuda_dev, table, 1)
+    assert eb_ops.launch_plan(n_bags, bag, D, view.data_ptr() % 16 == 0
+                              ).route == "scalar"
+    assert torch.equal(_bag_bitwise(view, ids, "mean"), aligned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bags", [8, 4096])
+def test_cuda_embedding_bag_small_batches_bitwise(cuda_dev, n_bags, rng):
+    """The batch-1 query's 8 bags split their columns over 8 blocks; the
+    serve_p99 batch's 4,096 bags do not need to."""
+    V, D, bag = 100000, 256, 16
+    table = rng.standard_normal((V, D), dtype=np.float32)
+    ids = rng.integers(0, V, (n_bags, bag)).astype(np.int32)
+    p = eb_ops.launch_plan(n_bags, bag, D, True, sms=eb_ops._sms(cuda_dev))
+    assert (p.parts > 1) == (n_bags == 8)
+    _bag_bitwise(torch.from_numpy(table).to(cuda_dev), ids, "mean")
+
+
+@pytest.mark.cuda
+def test_cuda_embedding_bag_rerun_bitwise(cuda_dev):
+    """A serving-like call twice: the same bits (no order depends on the
+    run)."""
+    gen = torch.Generator(device=cuda_dev).manual_seed(0)
+    table = torch.randn((1_000_000, 256), generator=gen, device=cuda_dev)
+    ids = torch.randint(0, 1_000_000, (65536, 16), generator=gen,
+                        device=cuda_dev, dtype=torch.int32)
+    before = eb_ops.LAUNCHES["embedding_bag"]
+    a = eb_ops.embedding_bag(table, ids, "mean")
+    b = eb_ops.embedding_bag(table, ids, "mean")
+    torch.cuda.synchronize()
+    assert eb_ops.LAUNCHES["embedding_bag"] == before + 2
+    assert _bits(a, b) and _bits(a, eb_ref.embedding_bag_ref(table, ids,
+                                                             "mean"))
+
+
+@pytest.mark.cuda
+def test_cuda_embedding_bag_refused_plan_raises(cuda_dev, monkeypatch):
+    """A plan the kernel does not take is refused with an error code, which
+    the wrapper raises; nothing is launched or counted."""
+    t = torch.zeros(8, 4, device=cuda_dev)
+    ids = torch.zeros(3, 2, dtype=torch.int32, device=cuda_dev)
+    good = eb_ops.launch_plan(3, 2, 4, True)
+    bad = dataclasses.replace(good, smem=good.smem + 16)
+    monkeypatch.setattr(eb_ops, "launch_plan", lambda *a, **k: bad)
+    before = eb_ops.LAUNCHES["embedding_bag"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        eb_ops.embedding_bag(t, ids)
     assert eb_ops.LAUNCHES["embedding_bag"] == before
 
 
