@@ -99,11 +99,34 @@ and spill report and checks that the bf16 flash kernel's SASS holds
   unit with edges), ``gather_rows`` once per (run, pass, layer, unit) and
   phase D's ``scatter_add`` count in kernel-fused; none in reference.
 - Phase G, the other families' training at full width: ``sage``,
-  ``gin``, ``pna`` and ``graphcast`` on the same graph, widths and cache,
-  one epoch + AdamW in kernel mode at depth 0 and 2. Checks finite loss
-  and gradients, pipelined == serial bitwise, and exact launch counts:
-  ``gather_rows`` once per (run, pass, layer, unit) and phase D's
-  ``scatter_add`` count.
+  ``gin``, ``pna`` and ``graphcast`` at the same widths on a 131,072-node
+  graph with a 256 MB host cache (cut from D's 262,144 nodes and 512 MB,
+  the same share of the layer-0 table, to keep the script inside its time
+  limit), one epoch + AdamW in kernel mode at depth 0 and 2. Checks finite
+  loss and gradients, pipelined == serial bitwise, and exact launch
+  counts: ``gather_rows`` once per (run, pass, layer, unit) and the
+  ``scatter_add`` count of this graph's grad write-backs.
+- Phase J, right after G, the micro-batch baseline, the cost model and the
+  run records: (1) ``microbatch_grads`` for GCN at D's widths on D's
+  graph (``gcn_norm_coeffs`` weights, 8 micro-batches, as
+  ``benchmarks/table1_engines.py``) against the whole-graph oracle under
+  autograd on the card: loss within 1e-4, every gradient within 1e-4
+  max-relative (``tests/test_engine_equivalence.py``'s bounds); prints the
+  peak input nodes over |V|, each micro-batch's hop edges, host MFG-build
+  and device seconds, peak device GB; (2) the cost model's tiers measured
+  (``measure_tiers``) and printed beside ``H100_MACHINE``'s constants,
+  with whether the page-cache eviction took (printed, not checked: another
+  machine's disk is no fault of the code); (3) ``modeled_time`` and
+  ``format_attribution(attribution_report(...))`` of phase D's
+  kernel-fused depth-2 run (its epoch's counters, ``gnn_epoch_flops``, its
+  measured wall), naming the limiting stage; (4) a pipelined GCN epoch at
+  phase B's size under a ``TelemetryServer`` on a free port: ``GET
+  /metrics`` holds the byte counters of ``Counters.snapshot()`` exactly;
+  (5) ``launch.train --arch gcn-cora --offload --ledger <tmp>``: exit 0
+  and one record that ``validate_record`` passes, backend ``cuda``; (6)
+  ``examples.train_gnn_offload`` at its defaults: 3 epochs straight, then
+  2 with a checkpoint and a resumed run to 3, equal to the straight run
+  bitwise. Its runs' kernel launches count in the kernel line.
 - Phase H, two-tower retrieval (``two_tower_retrieval`` ``CONFIG``: embed
   256, towers 1024-512-256, 8 user and 4 item fields, bags of 16), weights
   from ``torch.Generator`` seed 0 on the card. Serving at the published
@@ -227,6 +250,31 @@ C_CACHE_MB = 128
 E_NODES = 20000
 E_PARTS = 8
 E_CACHE_MB = 64
+# phase G: the same widths on half of D's nodes, the host cache cut with
+# them (a share of the layer-0 table as in D), to keep the script inside
+# its time limit
+G_NODES = 131072
+G_CACHE_MB = 256
+# phase J: the micro-batch baseline on D's graph with table1_engines'
+# n_micro, held to tests/test_engine_equivalence.py's bounds against the
+# whole-graph oracle; the tier probes' sizes (a 1 GiB copy on and off the
+# card, D's layer-0 table gathered by half its rows, a 2 GiB file); phase
+# B's graph for the telemetry scrape
+J_MICRO = 8
+J_LOSS_TOL = 1e-4
+J_GRAD_TOL = 1e-4
+J_COPY_BYTES = 1 << 30
+J_GATHER_ROWS = N_NODES
+J_SSD_ROWS = 1 << 19
+J_SSD_BLOCK_ROWS = N_NODES // N_PARTS
+B_NODES = 2000
+B_AVG_DEGREE = 7
+B_PARTS = 6
+B_DIMS = [24, 32, 8]
+# train_gnn_offload at its defaults: epochs straight, then the same with a
+# checkpoint after J_CKPT_EPOCH and a resume from it
+J_EXAMPLE_EPOCHS = 3
+J_CKPT_EPOCH = 2
 # phase H: two-tower training cuts (rows per table, batch) and the
 # example's own size for the checkpoint resume
 H_TRAIN_VOCAB = 2_000_000
@@ -1409,6 +1457,8 @@ def phase_d(plan, dev):
             dense_check=False, device=dev,
         )
         launches[mode] = launch_counts()
+        if mode == "kernel-fused":
+            fused = r["runs"][2]      # phase J's cost model reads this run
         for depth, run in r["runs"].items():
             print_run(f"{mode} depth {depth}", run)
         print(f"  {mode}: loss {r['serial_loss']!r}, launches "
@@ -1433,7 +1483,7 @@ def phase_d(plan, dev):
     check(le <= 1e-4 and ge <= 5e-4,
           f"kernel-fused within 1e-4 of reference on the loss (rel {le:.3e}) "
           f"and 5e-4 on the gradients (max rel {ge:.3e})")
-    return launches
+    return launches, fused
 
 
 # ----------------------------------------------------------------- phase F
@@ -1490,15 +1540,19 @@ def phase_f(plan, dev):
 
 
 # ----------------------------------------------------------------- phase G
-def phase_g(plan, dev):
+def phase_g(dev):
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.infer import _smoke_graph
     from repro_torch.launch.train import _train_smoke
 
     print(f"phase G: sage, gin, pna, graphcast offloaded training at full "
-          f"width {DIMS}, {CACHE_MB} MB host cache, one epoch + AdamW, "
-          f"kernel mode", flush=True)
+          f"width {DIMS}, {G_NODES} nodes, {G_CACHE_MB} MB host cache, one "
+          f"epoch + AdamW, kernel mode", flush=True)
+    # the launcher's own graph and plan at G's size (kept in its one-entry
+    # cache for the runs below)
+    _, plan = _smoke_graph(G_NODES, AVG_DEGREE, N_PARTS, dev)
     L = len(DIMS) - 1
     units = len(plan.schedule)
     # two runs (depth 0, 2) x two passes (forward, backward regather) per
@@ -1510,8 +1564,8 @@ def phase_g(plan, dev):
         t0 = time.perf_counter()
         reset_launches()          # this path's launches start here
         r = _train_smoke(
-            model, 2, dims=DIMS, n_nodes=N_NODES, n_parts=N_PARTS,
-            avg_degree=AVG_DEGREE, cache_mb=CACHE_MB, kernels="kernel",
+            model, 2, dims=DIMS, n_nodes=G_NODES, n_parts=N_PARTS,
+            avg_degree=AVG_DEGREE, cache_mb=G_CACHE_MB, kernels="kernel",
             dense_check=False, device=dev,
         )
         launches[model] = launch_counts()
@@ -1528,6 +1582,366 @@ def phase_g(plan, dev):
               f"{model}: launches {launches[model]} == {expect}")
         del r
         torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------- phase J
+def phase_j_microbatch(g, dev) -> None:
+    """``microbatch_grads`` (GCN at ``DIMS``, ``J_MICRO`` micro-batches,
+    ``gcn_norm_coeffs`` weights) against the whole-graph oracle's loss and
+    gradients under autograd, on ``g``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.microbatch import microbatch_grads
+    from repro_torch.graph.csr import gcn_norm_coeffs
+    from repro_torch.graph.synthetic import random_features, random_labels
+    from repro_torch.launch.train import _reset_peak
+    from repro_torch.models.gnn.layers import (
+        full_graph_loss, full_graph_topo, get_gnn,
+    )
+
+    n, e = g.n_nodes, g.n_edges
+    print(f"phase J: micro-batch baseline, GCN {DIMS}, {J_MICRO} "
+          f"micro-batches, vs the whole-graph oracle: {n} nodes, {e} edges",
+          flush=True)
+    spec = get_gnn("gcn")
+    ew = gcn_norm_coeffs(g)
+    X = random_features(n, DIMS[0], 0)
+    Y = random_labels(n, DIMS[-1], 0)
+    params = spec.init(torch.Generator().manual_seed(0), DIMS[0], DIMS[1],
+                       DIMS[-1], len(DIMS) - 1, device=dev)
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    loss, grads, st = microbatch_grads(spec, params, g, X, Y, J_MICRO,
+                                       edge_weight=ew, device=dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    inner = sum(h[0] for h in st["hop_edges"])
+    print(f"  micro-batch epoch: wall {wall:.3f} s, of it host (MFG builds, "
+          f"input features' row gathers) {st['host_s']:.3f} s and device "
+          f"(features' copy, forward, backward) {st['device_s']:.3f} s; "
+          f"peak device {peak:.2f} GB", flush=True)
+    print(f"  peak input nodes {st['peak_input_nodes']} = "
+          f"{st['peak_input_nodes'] / n:.4f} |V|; input nodes per "
+          f"micro-batch {st['input_nodes']}", flush=True)
+    print(f"  hop edges, innermost first, per micro-batch "
+          f"{st['hop_edges']} (|E| = {e}); layer-0 edge work {inner} = "
+          f"{inner / e:.3f} |E|", flush=True)
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    topo = full_graph_topo(g.indptr, g.indices, n, ew, device=dev)
+    with torch.enable_grad():
+        oracle = full_graph_loss(spec, params, X, topo, Y)
+        want = torch.autograd.grad(oracle, list(params.parameters()))
+    oracle = float(oracle.detach())
+    torch.cuda.synchronize(dev)
+    print(f"  whole-graph oracle: wall {time.perf_counter() - t0:.3f} s, "
+          f"peak device {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB",
+          flush=True)
+    del topo
+    got = [t for layer in grads for t in layer.values()]
+    le = abs(loss - oracle)
+    check(bool(np.isfinite(loss)) and le <= J_LOSS_TOL,
+          f"micro-batch loss {loss!r} within {J_LOSS_TOL} of the "
+          f"whole-graph oracle's {oracle!r} ({le:.3e})")
+    ge = max(rel_err(w.cpu().numpy(), t.cpu().numpy())
+             for w, t in zip(want, got))
+    check(all(bool(torch.isfinite(t).all()) for t in got)
+          and ge <= J_GRAD_TOL,
+          f"micro-batch gradients finite and within {J_GRAD_TOL} "
+          f"max-relative of the oracle's ({ge:.3e})")
+    torch.cuda.empty_cache()
+
+
+def device_read_bytes():
+    """Bytes this process has had fetched from storage devices so far
+    (``read_bytes`` of ``/proc/self/io``), or None where the kernel does
+    not say."""
+    try:
+        with open("/proc/self/io") as f:
+            for line in f:
+                if line.startswith("read_bytes:"):
+                    return int(line.split()[1])
+    except OSError:
+        pass
+    return None
+
+
+def measure_tiers(dev) -> dict:
+    """The cost model's tiers where the script runs, bytes/s: ``hbm`` a 1 GiB
+    device-to-device copy (read + written), ``host_link`` pinned H2D and D2H
+    copies of 1 GiB (both ways over their summed times; ``h2d`` / ``d2h``
+    apart), ``host_mem`` a numpy row gather (``np.take``, as
+    ``ForwardRunner.gather``) of half of D's layer-0 table's rows by a
+    seeded index (bytes gathered, best of 3), ``ssd`` a ``StorageTier``
+    file of 2 GiB written, ``fsync``ed and evicted (``StorageTier.evict``),
+    read in blocks of D's partition size (``ssd_fetched``: the bytes that
+    read fetched from the device, None if unknown); ``ssd_warm`` the same
+    read again from the page cache."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.storage import StorageTier
+
+    out = {}
+    n = J_COPY_BYTES // 4
+    a = torch.ones(n, device=dev)
+    b = torch.empty_like(a)
+    out["hbm"] = 2 * J_COPY_BYTES / (time_ms(lambda: b.copy_(a), 10) / 1e3)
+    h = torch.ones(n).pin_memory()
+    h2d = time_ms(lambda: b.copy_(h, non_blocking=True), 10)
+    d2h = time_ms(lambda: h.copy_(a, non_blocking=True), 10)
+    out["h2d"] = J_COPY_BYTES / (h2d / 1e3)
+    out["d2h"] = J_COPY_BYTES / (d2h / 1e3)
+    out["host_link"] = 2 * J_COPY_BYTES / ((h2d + d2h) / 1e3)
+    del a, b, h
+    rng = np.random.default_rng(0)
+    table = rng.standard_normal((J_GATHER_ROWS, DIMS[0]), dtype=np.float32)
+    idx = rng.integers(0, J_GATHER_ROWS, J_GATHER_ROWS // 2)
+    buf = np.empty((idx.size, DIMS[0]), np.float32)
+    best = math.inf
+    for _ in range(3):
+        t0 = time.perf_counter()
+        np.take(table, idx, axis=0, out=buf, mode="clip")
+        best = min(best, time.perf_counter() - t0)
+    out["host_mem"] = buf.nbytes / best
+    st = StorageTier(tempfile.mkdtemp(prefix="chip_smoke_tier_"))
+    blk = J_SSD_BLOCK_ROWS
+    try:
+        st.alloc("tier", (J_SSD_ROWS, DIMS[0]))
+        for r0 in range(0, J_SSD_ROWS, blk):
+            st.write_rows("tier", r0, table[:blk])
+        st.evict("tier")
+
+        def read_all() -> float:
+            t0 = time.perf_counter()
+            for r0 in range(0, J_SSD_ROWS, blk):
+                st.read_rows("tier", r0, r0 + blk)
+            return time.perf_counter() - t0
+
+        before = device_read_bytes()
+        cold = read_all()
+        after = device_read_bytes()
+        warm = read_all()
+    finally:
+        st.close()
+    nbytes = J_SSD_ROWS * DIMS[0] * 4
+    out["ssd"] = nbytes / cold
+    out["ssd_warm"] = nbytes / warm
+    out["ssd_bytes"] = nbytes
+    out["ssd_fetched"] = (None if before is None or after is None
+                          else after - before)
+    return out
+
+
+def phase_j_tiers(smi: str, dev) -> None:
+    from repro_torch.core.costmodel import H100_MACHINE
+
+    t = measure_tiers(dev)
+    prof = H100_MACHINE
+    print(f"  tiers measured ({smi}), GB/s, beside the H100_MACHINE "
+          f"profile's: hbm {t['hbm'] / 1e9:.1f} ({prof.hbm / 1e9:.1f}), "
+          f"host_link {t['host_link'] / 1e9:.2f} ({prof.host_link / 1e9:.2f};"
+          f" h2d {t['h2d'] / 1e9:.2f}, d2h {t['d2h'] / 1e9:.2f}), host_mem "
+          f"{t['host_mem'] / 1e9:.2f} ({prof.host_mem / 1e9:.2f}), ssd "
+          f"{t['ssd'] / 1e9:.3f} ({prof.ssd / 1e9:.3f}; warm re-read "
+          f"{t['ssd_warm'] / 1e9:.3f}); peak_flops {prof.peak_flops:.3g} "
+          f"(data sheet)", flush=True)
+    fetched = t["ssd_fetched"]
+    if fetched is None:
+        took = "cannot be told (no /proc/self/io)"
+    else:
+        took = ("took" if fetched >= 0.9 * t["ssd_bytes"] else "did not "
+                "take") + (f": the cold read fetched {fetched / 1e9:.3f} GB "
+                           f"of {t['ssd_bytes'] / 1e9:.3f} GB from the "
+                           f"device")
+    print(f"  ssd: the page-cache eviction {took}; the cold read took "
+          f"{t['ssd_warm'] / t['ssd']:.2f}x the warm re-read's time",
+          flush=True)
+
+
+def phase_j_attribution(fused: dict, n: int, e: int) -> None:
+    """``modeled_time`` and ``attribution_report`` (``H100_MACHINE``) of
+    phase D's kernel-fused depth-2 run: its ``Counters`` (the epoch and the
+    ``initialize`` before it, which writes the layer-0 table),
+    ``gnn_epoch_flops(n, e, DIMS)`` and its measured wall (one epoch +
+    AdamW)."""
+    from repro_torch.core.costmodel import (
+        H100_MACHINE, gnn_epoch_flops, modeled_time,
+    )
+    from repro_torch.obs.attribution import (
+        attribution_report, format_attribution,
+    )
+
+    c = fused["counters"]
+    flops = gnn_epoch_flops(n, e, DIMS)
+    wall = fused["wall_s"][-1]
+    mt = modeled_time(c, H100_MACHINE, flops)
+    print(f"  phase D kernel-fused depth 2, one epoch: measured wall "
+          f"{wall:.3f} s; modeled (H100_MACHINE): storage "
+          f"{mt.t_storage:.3f} s, link {mt.t_link:.3f} s, host "
+          f"{mt.t_host:.3f} s, compute {mt.t_compute:.4f} s "
+          f"({flops:.4g} FLOP); serial {mt.serial:.3f} s, overlapped "
+          f"{mt.overlapped:.3f} s", flush=True)
+    rep = attribution_report(c.snapshot(), H100_MACHINE, wall, flops=flops,
+                             metrics=c.metrics.snapshot())
+    print(format_attribution(rep), flush=True)
+    check(rep["limiting_stage"] is not None,
+          f"attribution's limiting stage: {rep['limiting_stage']} (modeled "
+          f"{rep['modeled_s'][rep['limiting_stage']]:.3f} s of the "
+          f"{wall:.3f} s wall)")
+
+
+def phase_j_telemetry(dev) -> dict:
+    """A pipelined GCN epoch at phase B's size under a ``TelemetryServer``
+    on a free port: ``GET /metrics`` after it, parsed with
+    ``parse_prometheus_text``, holds every byte counter of
+    ``Counters.snapshot()``. Returns the run's launches."""
+    import tempfile
+    import urllib.request
+
+    import torch
+
+    from repro_torch.core.cache import HostCache
+    from repro_torch.core.counters import Counters
+    from repro_torch.core.engine import SSOEngine
+    from repro_torch.core.storage import StorageTier
+    from repro_torch.graph.synthetic import random_features, random_labels
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.infer import _smoke_graph
+    from repro_torch.models.gnn.layers import get_gnn
+    from repro_torch.obs.live import TelemetryServer, parse_prometheus_text
+    from repro_torch.runtime import PipelineConfig
+
+    g, plan = _smoke_graph(B_NODES, B_AVG_DEGREE, B_PARTS, dev)
+    spec = get_gnn("gcn")
+    X = random_features(g.n_nodes, B_DIMS[0], 0)[plan.ro.perm]
+    Y = random_labels(g.n_nodes, B_DIMS[-1], 0)[plan.ro.perm]
+    params = spec.init(torch.Generator().manual_seed(0), B_DIMS[0],
+                       B_DIMS[1], B_DIMS[-1], len(B_DIMS) - 1, device=dev)
+    c = Counters()
+    st = StorageTier(tempfile.mkdtemp(), counters=c)
+    eng = SSOEngine(spec, plan, B_DIMS, st, HostCache(4 << 20, st, c), c,
+                    pipeline=PipelineConfig(depth=2), device=dev)
+    srv = TelemetryServer(c, port=0).start()
+    try:
+        reset_launches()          # this path's launches start here
+        eng.initialize(X)
+        eng.run_epoch(params, Y)
+        launches = launch_counts()
+        url = f"http://127.0.0.1:{srv.port}/metrics"
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            body = resp.read().decode()
+        snap = c.snapshot()
+    finally:
+        srv.stop()
+        eng.close()
+        st.close()
+    scraped = parse_prometheus_text(body)
+    fields = sorted(k for k in snap if k.endswith("_bytes"))
+    bad = {k: (scraped.get(f"repro_counters_{k}"), snap[k]) for k in fields
+           if scraped.get(f"repro_counters_{k}") != snap[k]}
+    print(f"  telemetry: {len(scraped)} samples scraped from {url}; "
+          f"launches {launches}", flush=True)
+    check(not bad and snap["h2d_bytes"] > 0 and snap["storage_read_bytes"] > 0,
+          f"GET /metrics after a pipelined GCN epoch ({B_NODES} nodes): its "
+          f"{len(fields)} byte counters equal Counters.snapshot()'s "
+          f"(h2d {snap['h2d_bytes']}, storage read "
+          f"{snap['storage_read_bytes']}){'' if not bad else f'; {bad}'}")
+    check(c.threads_leaked == 0, "telemetry: no thread leaked")
+    return launches
+
+
+def phase_j_ledger(dev) -> dict:
+    """``python -m repro_torch.launch.train --arch gcn-cora --offload
+    --ledger <tmp>``: exit 0 and one ``train_offload_smoke`` record that
+    ``validate_record`` passes, with backend ``cuda``. Returns the run's
+    launches."""
+    import os
+    import tempfile
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.obs.ledger import RunLedger, validate_record
+
+    path = os.path.join(tempfile.mkdtemp(), "ledger.jsonl")
+    reset_launches()              # this path's launches start here
+    try:
+        train_main(["--arch", "gcn-cora", "--offload", "--ledger", path])
+        code = None
+    except SystemExit as e:
+        code = e.code
+    launches = launch_counts()
+    check(code == 0, f"launch.train gcn-cora --offload --ledger: exit {code}")
+    recs = RunLedger(path).records()
+    rec = recs[0] if recs else {}
+    errs = validate_record(rec)
+    check(len(recs) == 1 and not errs and rec["backend"] == "cuda"
+          and rec["run_kind"] == "train_offload_smoke"
+          and rec["watch"] == {"wall_s": "lower"},
+          f"ledger: one train_offload_smoke record, valid {errs}, backend "
+          f"{rec.get('backend')!r}, headline {rec.get('headline', {})}")
+    os.remove(path)
+    os.rmdir(os.path.dirname(path))
+    return launches
+
+
+def phase_j_example(dev) -> dict:
+    """``examples.train_gnn_offload`` at its defaults: ``J_EXAMPLE_EPOCHS``
+    epochs straight, then ``J_CKPT_EPOCH`` epochs with a checkpoint at the
+    end and a second run that resumes from it: the resumed run's losses and
+    final parameters equal the straight run's bitwise. Returns the launches
+    of the three runs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.examples import train_gnn_offload
+    from repro_torch.kernels import launch_counts, reset_launches
+
+    straight_dir, ck = tempfile.mkdtemp(), tempfile.mkdtemp()
+    reset_launches()              # this path's launches start here
+    t0 = time.perf_counter()
+    try:
+        a = train_gnn_offload.main(["--epochs", str(J_EXAMPLE_EPOCHS),
+                                    "--ckpt", straight_dir])
+        b = train_gnn_offload.main(["--epochs", str(J_CKPT_EPOCH),
+                                    "--ckpt-every", str(J_CKPT_EPOCH),
+                                    "--ckpt", ck])
+        r = train_gnn_offload.main(["--epochs", str(J_EXAMPLE_EPOCHS),
+                                    "--ckpt-every", str(J_CKPT_EPOCH),
+                                    "--ckpt", ck])
+    finally:
+        shutil.rmtree(straight_dir, ignore_errors=True)
+        shutil.rmtree(ck, ignore_errors=True)
+    launches = launch_counts()
+    print(f"  train_gnn_offload: {2 * J_EXAMPLE_EPOCHS} epochs in three runs "
+          f"in {time.perf_counter() - t0:.1f} s; losses {a['losses']}; "
+          f"launches {launches}", flush=True)
+    check(all(math.isfinite(x) for x in a["losses"] + r["losses"])
+          and len(b["checkpoints"]) == 1 and r["start"] == J_CKPT_EPOCH
+          and b["losses"] == a["losses"][:J_CKPT_EPOCH]
+          and r["losses"] == a["losses"][J_CKPT_EPOCH:]
+          and all(torch.equal(x, y) for x, y in
+                  zip(a["params"].parameters(), r["params"].parameters())),
+          f"train_gnn_offload: checkpoint at epoch {J_CKPT_EPOCH}, resumed "
+          f"run == straight run (losses and final parameters, bitwise)")
+    return launches
+
+
+def phase_j(g, fused: dict, smi: str, dev) -> dict:
+    """Phase J; returns its launches, summed over its runs."""
+    phase_j_microbatch(g, dev)
+    phase_j_tiers(smi, dev)
+    phase_j_attribution(fused, g.n_nodes, g.n_edges)
+    launches = dict(NO_LAUNCHES)
+    for run in (phase_j_telemetry, phase_j_ledger, phase_j_example):
+        for k, v in run(dev).items():
+            launches[k] += v
     return launches
 
 
@@ -2145,18 +2559,25 @@ def main() -> int:
     bsr_row, bsr_launches = phase_a_bsr(dev)
     print(f"phase A (bsr_spmm): {time.perf_counter() - t0:.1f} s", flush=True)
     plan = build_full_width(dev)
+    # D's graph itself, for phase J (the launcher's cached entry: phase G
+    # replaces it)
+    from repro_torch.launch.infer import _smoke_graph
+    graph, _ = _smoke_graph(N_NODES, AVG_DEGREE, N_PARTS, dev)
     results = phase_a(plan, DIMS[0], dev)
     results["bsr_spmm"] = bsr_row
     t0 = time.perf_counter()
-    training = phase_d(plan, dev)
+    training, fused_run = phase_d(plan, dev)
     print(f"phase D: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     gat = phase_f(plan, dev)
     print(f"phase F: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    families = phase_g(plan, dev)
+    families = phase_g(dev)
     print(f"phase G: {time.perf_counter() - t0:.1f} s", flush=True)
-    del plan
+    t0 = time.perf_counter()
+    baseline = phase_j(graph, fused_run, smi, dev)
+    print(f"phase J: {time.perf_counter() - t0:.1f} s", flush=True)
+    del plan, graph, fused_run
     t0 = time.perf_counter()
     phase_e(dev)
     print(f"phase E: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2173,12 +2594,13 @@ def main() -> int:
     kernels = []
     for name, r in results.items():
         # each kernel's launches over the serving, GCN training, GAT
-        # training, other families' training, two-tower serving and
-        # training, LM serving and bsr_spmm aggregate paths, every count
-        # read right after its runs
+        # training, other families' training, phase J's runs, two-tower
+        # serving and training, LM serving and bsr_spmm aggregate paths,
+        # every count read right after its runs
         n = sum(serving[m][name] + training[m][name] for m in MODES)
         n += sum(counts[name] for counts in gat.values())
         n += sum(counts[name] for counts in families.values())
+        n += baseline[name]
         n += tt_serving[name] + tt_training[name] + lm["launches"][name]
         n += bsr_launches if name == "bsr_spmm" else 0
         kernels.append(dict(

@@ -13,8 +13,10 @@ Ported so far: the serving slice — ``OffloadedInference`` +
 training slice — ``SSOEngine`` (regather and snapshot), AdamW, atomic
 checkpoints and the epoch-checkpointed loop — with all six GNN families;
 the two-tower retrieval model (``models/recsys/``, serving and training,
-with its example drivers in ``examples/``); and the hand-written CUDA
-kernels on those paths (``gather_rows``, ``gather_aggregate``,
-``scatter_add``, ``edge_softmax``, ``embedding_bag`` in
-``kernels/*/csrc/``).
+with its example programs in ``examples/``); the dense LM's serving
+(``models/lm/``); the micro-batch baseline (``core/microbatch.py``), the
+neighbour sampler, the tier cost model (``core/costmodel.py``), the run
+ledger, attribution, regression sentinel and live telemetry (``obs/``)
+and the three GNN examples; and the hand-written CUDA kernels, every
+Pallas kernel of the reference (``kernels/*/csrc/``).
 """

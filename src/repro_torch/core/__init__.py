@@ -1,6 +1,7 @@
 """GriNNder core for the port: structured storage offloading
-(cache/(re)gather/bypass), the partition plan, the SSO training engine and
-the storage fault-injection tier.
+(cache/(re)gather/bypass), the partition plan, the SSO training engine,
+the storage fault-injection tier, the micro-batch baseline and the tier
+cost model.
 
 Unlike the reference package this ``__init__`` imports no engine eagerly:
 the names below load their submodule on first access. The engine imports
@@ -16,6 +17,10 @@ _EXPORTS = {
     "PartitionPlan": "plan", "WorkUnit": "plan", "build_plan": "plan",
     "SSOEngine": "engine",
     "FaultPolicy": "faults", "FaultyTier": "faults",
+    "TierBandwidths": "costmodel", "H100_MACHINE": "costmodel",
+    "ModeledTime": "costmodel", "modeled_time": "costmodel",
+    "gnn_epoch_flops": "costmodel",
+    "microbatch_grads": "microbatch", "build_full_mfg": "microbatch",
 }
 
 __all__ = sorted(_EXPORTS)

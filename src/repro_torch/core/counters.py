@@ -18,6 +18,7 @@ import dataclasses
 import threading
 import time
 from collections import defaultdict
+from functools import partial
 from typing import Dict
 
 from repro_torch.obs.metrics import MetricsRegistry
@@ -91,6 +92,13 @@ class Counters:
                            fn=lambda: self.tracer.dropped)
         self.metrics.gauge("trace.ring_occupancy",
                            fn=lambda: self.tracer.ring_occupancy)
+        # the byte counters as callback gauges (``counters.<field>``), so a
+        # live scrape (``obs.live.TelemetryServer``) and the sampler's rings
+        # carry the bytes each tier has moved so far
+        for f in dataclasses.fields(self):
+            if f.name.endswith("_bytes"):
+                self.metrics.gauge(f"counters.{f.name}",
+                                   fn=partial(getattr, self, f.name))
 
     def record_phase(self, name: str, seconds: float) -> None:
         with self._lock:

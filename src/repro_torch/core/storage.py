@@ -175,6 +175,27 @@ class StorageTier:
         except OSError:
             pass
 
+    def evict(self, name: str) -> None:
+        """Write ``name``'s dirty pages to the device (``fsync``) and drop
+        them from the OS page cache (``POSIX_FADV_DONTNEED``), so the next
+        read comes from the device. The file's mapping is closed first (the
+        kernel keeps mapped pages) and reopened after. Call it with no I/O
+        on ``name`` in flight. The advice may not take (a file system in
+        memory, pages another process maps): read the result's rate."""
+        with self._lock:
+            mm = self._arrays.pop(name)
+            mm.flush()
+            del mm
+            shape, dtype = self._meta[name]
+            fd = os.open(self._path(name), os.O_RDONLY)
+            try:
+                os.fsync(fd)
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+            self._arrays[name] = np.memmap(self._path(name), dtype=dtype,
+                                           mode="r+", shape=shape)
+
     def shape(self, name: str) -> tuple:
         return self._meta[name][0]
 

@@ -9,11 +9,12 @@ from repro_torch.graph.partition import (
     PartitionResult,
 )
 from repro_torch.graph.reorder import reorder_by_partition
+from repro_torch.graph.sampler import NeighborSampler, MessageFlowGraph
 
 __all__ = [
     "CSRGraph", "coo_to_csr", "gcn_norm_coeffs",
     "kronecker_graph", "watts_strogatz", "erdos_renyi",
     "switching_aware_partition", "random_partition", "spinner_like_partition",
     "expansion_ratio", "partition_dependency_matrix", "PartitionResult",
-    "reorder_by_partition",
+    "reorder_by_partition", "NeighborSampler", "MessageFlowGraph",
 ]

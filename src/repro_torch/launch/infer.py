@@ -7,9 +7,14 @@ against the serial one (bit-identical embedding table) and the served
 lookups against a dense whole-graph forward, then reports the
 EmbeddingServer's hit/latency stats.
 
-Exit status 0 iff every check passes. The reference launcher's
-``--telemetry-port`` and ``--ledger`` options are not carried over yet (the
-live exporter and the run ledger are not ported).
+``--telemetry-port PORT`` serves live Prometheus metrics (``GET
+/metrics``, :class:`~repro_torch.obs.live.TelemetryServer`; 0 picks a free
+port) over the pipelined run and its serving lookups; ``--ledger [PATH]``
+appends one ``infer_smoke`` record (:mod:`repro_torch.obs.ledger`,
+``backend`` the device type) to that JSONL ledger. ``--device cpu`` runs
+on the CPU.
+
+Exit status 0 iff every check passes.
 """
 from __future__ import annotations
 
@@ -67,11 +72,17 @@ def _infer_smoke(
     kernels: str = "auto",
     dense_check: bool = True,
     device=None,
+    telemetry_port: Optional[int] = None,
+    ledger: Optional[str] = None,
 ) -> dict:
     """Drive OffloadedInference (serial + pipelined) and the
     EmbeddingServer for a GNN arch on ``device`` (the CUDA card unless
     ``device="cpu"``); returns the check/stat dict. ``dims`` defaults to
     ``[24, 32, 8]`` (input, hidden..., output).
+    ``telemetry_port`` serves live Prometheus metrics over the run at
+    ``depth`` (its counters, the serve-side gauges included) while it and
+    its lookups run; ``ledger`` appends a ``run_kind="infer_smoke"`` record
+    of that run to that JSONL ledger.
 
     Served rows are checked against the table on storage (bitwise) and,
     with ``dense_check``, against a dense whole-graph forward (off where
@@ -127,6 +138,10 @@ def _infer_smoke(
             store_dtype=store_dtype,
             device=device,
         )
+        server = None
+        if telemetry_port is not None and d == depth:
+            from repro_torch.obs.live import TelemetryServer
+            server = TelemetryServer(c, port=telemetry_port).start()
         inf.initialize(X)
         if on_card:
             torch.cuda.reset_peak_memory_stats(device)
@@ -179,7 +194,26 @@ def _infer_smoke(
             # re-export: the engine's close() wrote the inference timeline
             # before the serving lookups above recorded their spans
             c.tracer.export_chrome_trace(trace)
+        if server is not None:
+            server.stop()
         st_.close()
+
+    if ledger:
+        from repro_torch.obs.ledger import RunLedger, make_record
+        RunLedger(ledger).append(make_record(
+            "infer_smoke",
+            dict(model=model, depth=depth, cache_mb=cache_mb,
+                 serve_cache_kb=serve_cache_kb, queries=queries,
+                 batch=batch, fp16=fp16, gather_workers=gather_workers,
+                 dims=dims, n_nodes=n_nodes, n_parts=n_parts,
+                 avg_degree=avg_degree, kernels=kernels),
+            dict(wall_s=runs[depth]["wall_s"],
+                 hit_rate=float(stats.get("hit_rate", 0.0)),
+                 p99_ms=float(stats.get("p99_ms", 0.0))),
+            counters=runs[depth]["counters"],
+            watch={"wall_s": "lower", "p99_ms": "lower"},
+            backend=device.type,
+        ))
 
     tables = [r["table"] for r in runs.values()]
     return dict(
@@ -218,6 +252,17 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--trace", metavar="OUT.json", default=None,
                     help="write a Chrome/Perfetto trace_event timeline of "
                          "the inference + serving run (ui.perfetto.dev)")
+    ap.add_argument("--telemetry-port", type=int, default=None,
+                    metavar="PORT",
+                    help="serve live Prometheus metrics (GET /metrics) for "
+                         "the duration of the run (0 = ephemeral)")
+    ap.add_argument("--ledger", nargs="?", const="RUNS/ledger.jsonl",
+                    default=None, metavar="PATH",
+                    help="append a run record to this JSONL ledger "
+                         "(repro_torch.obs.ledger)")
+    ap.add_argument("--device", default=None,
+                    help="the device (default: the CUDA card; 'cpu' for a "
+                         "CPU run)")
     args = ap.parse_args(argv)
     if args.trace:
         import logging
@@ -234,6 +279,8 @@ def main(argv: Optional[Sequence[str]] = None):
         serve_cache_kb=args.serve_cache_kb, queries=args.queries,
         batch=args.batch, fp16=args.fp16,
         gather_workers=args.gather_workers, trace=args.trace,
+        device=args.device, telemetry_port=args.telemetry_port,
+        ledger=args.ledger,
     )
     r.pop("runs")
     print(f"{args.arch} infer smoke: {r}")

@@ -31,9 +31,14 @@ Exit status 0 iff every check passes (or the cell is skipped); 2 for an
 arch that is neither a GNN arch, ``two-tower-retrieval`` nor an LM arch,
 for a GNN arch without ``--offload``, for ``two-tower-retrieval`` without
 ``--smoke`` (the reference's dry-run path is not ported) and for LM
-training. The reference launcher's ``--telemetry-port`` and
-``--ledger`` options are not carried over yet (the live exporter and the
-run ledger are not ported).
+training.
+
+With ``--offload``, ``--telemetry-port PORT`` serves live Prometheus
+metrics (``GET /metrics``, :class:`~repro_torch.obs.live.TelemetryServer`;
+0 picks a free port) over the requested depth's run, and ``--ledger
+[PATH]`` appends one ``train_offload_smoke`` record
+(:mod:`repro_torch.obs.ledger`, ``backend`` the device type) to that JSONL
+ledger. ``--device cpu`` runs the smoke on the CPU.
 """
 from __future__ import annotations
 
@@ -400,10 +405,16 @@ def _train_smoke(
     dense_check: bool = True,
     mode: str = "regather",
     device=None,
+    telemetry_port: Optional[int] = None,
+    ledger: Optional[str] = None,
 ) -> dict:
     """Drive SSOEngine (serial + pipelined) for a GNN arch on ``device``
     (the CUDA card unless ``device="cpu"``); returns the check/stat dict.
     ``dims`` defaults to ``[24, 32, 8]`` (input, hidden..., output).
+    ``telemetry_port`` serves live Prometheus metrics over the run at
+    ``depth`` (its counters) while it runs; ``ledger`` appends a
+    ``run_kind="train_offload_smoke"`` record of that run to that JSONL
+    ledger when its losses and gradients are finite.
 
     Each run initialises fresh weights (``torch.Generator`` seed 0) and
     AdamW state, then runs ``epochs`` epochs, each one ``run_epoch`` and one
@@ -478,6 +489,10 @@ def _train_smoke(
         params = init_params()
         opt = adamw_init(params)
         losses, grads, walls = [], [], []
+        server = None
+        if telemetry_port is not None and d == depth:
+            from repro_torch.obs.live import TelemetryServer
+            server = TelemetryServer(c, port=telemetry_port).start()
         try:
             eng.initialize(X)
             if on_card:
@@ -492,6 +507,8 @@ def _train_smoke(
                 losses.append(loss)
                 grads.append(gr)
         finally:
+            if server is not None:
+                server.stop()
             eng.close()
             st_.close()
         runs[d] = dict(
@@ -524,6 +541,19 @@ def _train_smoke(
         epochs=epochs,
         wall_s=piped["wall_s"][-1],
     )
+    if ledger and out["finite"]:
+        from repro_torch.obs.ledger import RunLedger, make_record
+        RunLedger(ledger).append(make_record(
+            "train_offload_smoke",
+            dict(model=model, depth=depth, gather_workers=gather_workers,
+                 transfer_stage=transfer_stage, device_slots=device_slots,
+                 dims=dims, n_nodes=n_nodes, n_parts=n_parts,
+                 avg_degree=avg_degree, cache_mb=cache_mb, kernels=kernels,
+                 epochs=epochs, mode=mode),
+            dict(wall_s=out["wall_s"], loss=float(out["loss"])),
+            counters=piped["counters"], watch={"wall_s": "lower"},
+            backend=device.type,
+        ))
     if dense_check:
         # the oracle at the weights of the first epoch (fresh init)
         rg = plan.ro.graph
@@ -610,9 +640,17 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="LM cells: one more prefill call / decode step "
                          "under torch.profiler; prints the device's busy "
                          "share and the top operators")
+    ap.add_argument("--telemetry-port", type=int, default=None,
+                    metavar="PORT",
+                    help="serve live Prometheus metrics (GET /metrics) for "
+                         "the duration of the --offload run (0 = ephemeral)")
+    ap.add_argument("--ledger", nargs="?", const="RUNS/ledger.jsonl",
+                    default=None, metavar="PATH",
+                    help="append a run record of the --offload run to this "
+                         "JSONL ledger (repro_torch.obs.ledger)")
     ap.add_argument("--device", default=None,
-                    help="LM cells: the device (default: the CUDA card; "
-                         "'cpu' for a CPU run)")
+                    help="--offload and LM cells: the device (default: the "
+                         "CUDA card; 'cpu' for a CPU run)")
     args = ap.parse_args(argv)
     if args.trace:
         import logging
@@ -643,6 +681,8 @@ def main(argv: Optional[Sequence[str]] = None):
         model, args.pipeline_depth, args.gather_workers,
         transfer_stage=not args.no_transfer_stage,
         device_slots=args.device_slots, trace=args.trace,
+        device=args.device, telemetry_port=args.telemetry_port,
+        ledger=args.ledger,
     )
     r.pop("runs")
     print(f"{args.arch} offload smoke: {r}")

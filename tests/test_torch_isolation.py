@@ -12,6 +12,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -117,6 +118,32 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(
                   HostCache(1 << 20, st, c), c)
     with pytest.raises(RuntimeError, match="CUDA"):
         _train_smoke("gcn", 0)
+    # the micro-batch baseline, the launchers' GNN paths and the GNN
+    # examples, with no device given
+    from repro_torch.core.microbatch import microbatch_grads
+    from repro_torch.examples import (
+        quickstart, serve_gnn_embeddings, train_gnn_offload,
+    )
+    from repro_torch.launch import infer as infer_launcher
+    from repro_torch.launch import train as train_launcher
+
+    g = plan.ro.graph
+    params = get_gnn("gcn").init(torch.Generator().manual_seed(0), 8, 8, 4,
+                                 2, device="cpu")
+    x = np.zeros((g.n_nodes, 8), np.float32)
+    y = np.zeros(g.n_nodes, np.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        microbatch_grads(get_gnn("gcn"), params, g, x, y, 2)
+    for run in (lambda: quickstart.main([]),
+                lambda: train_gnn_offload.main(["--epochs", "1"]),
+                lambda: serve_gnn_embeddings.main(["--smoke"]),
+                lambda: train_launcher.main(["--arch", "gcn-cora",
+                                             "--offload", "--ledger",
+                                             str(tmp_path / "l.jsonl")]),
+                lambda: infer_launcher.main(["--arch", "gcn-cora"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run()
+    assert not (tmp_path / "l.jsonl").exists()
     # the CPU, asked for, is fine
     assert resolve_device("cpu") == torch.device("cpu")
     inf = OffloadedInference(get_gnn("gcn"), plan, [8, 8, 4], st,

@@ -337,13 +337,11 @@ def test_launcher_exit_codes(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "requires a GNN arch" in out
     assert "pna: only --offload" in out and "gcn-cora: only --offload" in out
-    # the real smoke, on the CPU (the launcher itself runs on the card)
-    real = launch_train._train_smoke
-    monkeypatch.setattr(launch_train, "_train_smoke",
-                        lambda *a, **k: real(*a, device="cpu", **k))
+    # the real smoke, on the CPU (the launcher runs on the card unless
+    # --device says otherwise)
     with pytest.raises(SystemExit) as ei:
         launch_train.main(["--arch", "gcn-cora", "--offload",
-                           "--pipeline-depth", "1"])
+                           "--pipeline-depth", "1", "--device", "cpu"])
     assert ei.value.code == 0
     assert "pipeline_matches_serial': True" in capsys.readouterr().out
     monkeypatch.setattr(launch_train, "_train_smoke",
