@@ -186,6 +186,29 @@ and spill report and checks that the bf16 flash kernel's SASS holds
   (kernel mode) within ``LM_ROUNDTRIP_TOL``; (5) checks 1 and 4 in
   float32 at the same widths and 2 layers, within ``LM_F32_TOL``.
 
+- Phase K, the registry and ``distributed/``, in a process group of one
+  rank (``nccl``, a file store; a ``gloo`` group beside it for the CPU
+  runs) over a ``(1, 1)`` ``("data", "model")`` mesh, with the caching
+  allocator's expandable segments on: (1) every registered arch's
+  ``smoke()`` on the card, finite with ``grad_norm > 0`` (the two-tower
+  one also kernel == reference bitwise, with its launches), and the count
+  of ``list_cells()``; (2) ``graphsage-reddit`` x ``ogb_products`` through
+  the registry's CAGNET build at the cell's full size (2,449,029 nodes,
+  61,859,140 R-MAT edges made on the card from a seeded generator with
+  ``kronecker_graph``'s quadrant law, widths [100, 128, 47], per-layer
+  remat): 3 steps with walls and peak device GB, step 1's loss within
+  1e-5 relative of ``full_graph_loss`` on the same inputs; (3) the MFG
+  step at ``minibatch_lg``'s hop sizes (a fan-out of sources per seed,
+  602 features) and the batched step at ``molecule`` (``pna``, 128 graphs
+  of 30 nodes), 3 steps each, finite; (4) the partitioned-halo step (one
+  partition of a 4,096-node graph) against ``full_graph_loss`` of the
+  reordered graph within 1e-5, and split-KV decoding (window None and 16)
+  within 1e-5 of the plain decode; (5) the CAGNET, MFG and batched steps
+  on the card (nccl) and on the CPU (gloo) from the same inputs: losses
+  within 1e-4 relative and AdamW's ``m`` within 1e-4 max-relative a leaf;
+  and no kernel launched by the distributed steps (they run the layers'
+  plain segment ops, as the reference's do).
+
 Any failed check exits non-zero; no phase's failure is caught. TF32 is off
 for matmuls and cuDNN (float32 means float32 here). The last line is the
 JSON device record; the line before it the per-kernel JSON record.
@@ -2507,6 +2530,434 @@ def roundtrip(model, tol: float, tally) -> None:
           f"max-relative ({rt:.3e}; the reference's float32 figure is 2e-5)")
 
 
+# ----------------------------------------------------------------- phase K
+# the CAGNET step at ogb_products: steps, and step 1's loss against the
+# port's full_graph_loss (relative)
+K_STEPS = 3
+K_LOSS_TOL = 1e-5
+# the R-MAT quadrant law of kronecker_graph
+K_RMAT = (0.57, 0.19, 0.19)
+# halo step vs full_graph_loss (absolute), split-KV vs the plain decode
+K_HALO_TOL = 1e-5
+K_KV_TOL = 1e-5
+# card vs CPU: losses (relative) and AdamW's m (max-relative a leaf)
+K_NODES = 4096
+K_CMP_TOL = 1e-4
+
+
+def rmat_edges(n_nodes: int, n_edges: int, gen, dev):
+    """``n_edges`` R-MAT edges on the card from the generator ``gen``: at
+    each of ``ceil(log2 n_nodes)`` bit levels one uniform draw picks the
+    quadrant with ``kronecker_graph``'s probabilities (a, b, c, 1 - a - b -
+    c) for the row (source) and column (destination) bits; ids mod
+    ``n_nodes``. Self loops and repeats are kept (the cell's edge count is
+    exact); sorted by destination. Returns int32 ``(src, dst)``."""
+    import torch
+
+    a, b, c = K_RMAT
+    src = torch.zeros(n_edges, dtype=torch.int64, device=dev)
+    dst = torch.zeros(n_edges, dtype=torch.int64, device=dev)
+    for lvl in range(math.ceil(math.log2(max(n_nodes, 2)))):
+        r = torch.rand(n_edges, generator=gen, device=dev)
+        row = r >= a + b
+        col = torch.where(row, r >= a + b + c, r >= a)
+        src += row.long() << lvl
+        dst += col.long() << lvl
+        del r, row, col
+    src %= n_nodes
+    dst %= n_nodes
+    dst, order = torch.sort(dst, stable=True)
+    return src[order].int(), dst.int()
+
+
+def _k_m_err(ma: dict, mb: dict) -> float:
+    """The largest max-relative difference between two ``m`` trees, leaf
+    by leaf (``mb`` the yardstick)."""
+    return max(rel_err(mb[k].cpu().numpy(), ma[k].cpu().numpy()) for k in mb)
+
+
+def phase_k_registry(dev) -> None:
+    """Every registered arch's ``smoke()`` on the card, then the train
+    launcher's ``--list`` and ``--arch graphsage-reddit --smoke``."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import REGISTRY, list_cells
+    from repro_torch.launch.train import main as train_main
+
+    for name, arch in REGISTRY.items():
+        r = arch.smoke(device=dev)
+        ok = r["finite"] and r["grad_norm"] > 0
+        if arch.family == "recsys":
+            ok = ok and r["kernel_matches_reference"] and r["launches_ok"]
+        check(ok, f"{name} smoke on the card: loss {r['loss']:.6f}, "
+                  f"grad_norm {r['grad_norm']:.6g}, finite")
+    print(f"  list_cells(): {len(list_cells())} assigned cells of "
+          f"{len(REGISTRY)} registered archs "
+          f"({len(list_cells(assigned_only=False))} cells in all)",
+          flush=True)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_main(["--list"])
+    names = [line.split()[0] for line in out.getvalue().splitlines()]
+    check(names == list(REGISTRY),
+          f"launch.train --list: one line per registered arch {names}")
+    try:
+        train_main(["--arch", "graphsage-reddit", "--smoke"])
+        code = None
+    except SystemExit as e:
+        code = e.code
+    check(code == 0, f"launch.train --arch graphsage-reddit --smoke on the "
+                     f"card: exit {code}")
+
+
+def _k_steps(fn, params, opt, args, dev):
+    """``K_STEPS`` calls of a train step; (losses, walls s, peak GB)."""
+    import torch
+
+    from repro_torch.launch.train import _reset_peak
+
+    _reset_peak(dev)
+    losses, walls = [], []
+    for _ in range(K_STEPS):
+        t0 = time.perf_counter()
+        params, opt, loss = fn(params, opt, *args)
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    return losses, walls, torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def phase_k_cagnet(mesh, smi: str, dev) -> None:
+    """``graphsage-reddit`` x ``ogb_products``: the registry's CAGNET
+    build (sharded, per-layer remat) at the cell's full size and widths,
+    ``K_STEPS`` steps on R-MAT edges made on the card; step 1's loss
+    against ``full_graph_loss`` of the same inputs."""
+    import torch
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.models.gnn.layers import (
+        LocalTopo, full_graph_loss, get_gnn,
+    )
+    from repro_torch.optim import adamw_init
+
+    s = GNN_SHAPES["ogb_products"]
+    b = REGISTRY["graphsage-reddit"].build("ogb_products", mesh)
+    dims = b.meta["dims"]
+    n, e = b.args[2].shape[0], b.args[3].shape[0]
+    check((n, e, dims) == (s["n_nodes"], s["n_edges"], [100, 128, 47]),
+          f"graphsage-reddit x ogb_products build: {n} nodes, {e} edges, "
+          f"widths {dims}")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    src, dst = rmat_edges(n, e, gen, dev)
+    x = torch.randn((n, dims[0]), generator=gen, device=dev).mul_(0.1)
+    labels = torch.randint(0, dims[-1], (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    ew = torch.ones(e, device=dev)
+    deg = torch.bincount(dst, minlength=n).clamp_min_(1).float()
+    params = get_gnn("sage").init(torch.Generator().manual_seed(0), dims[0],
+                                  dims[1], dims[-1], len(dims) - 1,
+                                  device=dev)
+    torch.cuda.synchronize(dev)
+    print(f"  CAGNET inputs on the card (R-MAT edges, features, labels): "
+          f"{time.perf_counter() - t0:.3f} s; max in-degree "
+          f"{int(deg.max())}", flush=True)
+    losses, walls, peak = _k_steps(b.fn, params, adamw_init(params),
+                                   (x, src, dst, ew, deg, labels), dev)
+    print(f"  CAGNET step (graphsage-reddit x ogb_products, {n} nodes, {e} "
+          f"edges, widths {dims}, remat): walls {[round(w, 4) for w in walls]}"
+          f" s, losses {losses}, peak device {peak:.2f} GB ({smi})",
+          flush=True)
+    topo = LocalTopo(
+        src=src, dst=dst, n_dst=n, edge_weight=ew, edge_mask=ew,
+        in_deg=deg, dst_self=torch.arange(n, dtype=torch.int32, device=dev),
+        n_real_edges=e)
+    with torch.no_grad():
+        want = float(full_graph_loss(get_gnn("sage"), params, x, topo,
+                                     labels))
+    err = abs(losses[0] - want) / abs(want)
+    check(all(math.isfinite(v) for v in losses) and err <= K_LOSS_TOL,
+          f"CAGNET step 1's loss {losses[0]!r} within {K_LOSS_TOL} of "
+          f"full_graph_loss {want!r} ({err:.3e}); every step finite")
+    del x, src, dst, ew, deg, labels, topo
+    torch.cuda.empty_cache()
+
+
+def mfg_tensors(hops, d_feat: int, classes: int, seed: int, dev):
+    """One MFG group of the given hop sizes (innermost first), numpy seed
+    ``seed``: each destination takes ``n_edges / n_dst`` (the fan-out)
+    sources uniform over its hop's sources, every edge real, features
+    normal x 0.1, labels uniform."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    x = t((rng.standard_normal((1, hops[0][0], d_feat)) * 0.1)
+          .astype(np.float32))
+    flat = []
+    for n_src, n_dst, n_e in hops:
+        f = n_e // n_dst
+        flat.append((
+            t(rng.integers(0, n_src, (1, n_e)).astype(np.int32)),
+            t(np.repeat(np.arange(n_dst, dtype=np.int32), f)[None]),
+            t(np.ones((1, n_e), np.float32)),
+            t(np.full((1, n_dst), float(f), np.float32)),
+        ))
+    y = t(rng.integers(0, classes, (1, hops[-1][1])).astype(np.int32))
+    return x, tuple(flat), y
+
+
+def molecule_tensors(B: int, n: int, E: int, d_feat: int, classes: int,
+                     seed: int, dev):
+    """``B`` random graphs of ``n`` nodes and ``E`` edges (numpy seed
+    ``seed``): the first ``n`` edges one into each node (every atom has a
+    bond), the rest between uniform nodes; features normal x 0.1, degree
+    the in-edge count, labels uniform."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, (B, E)).astype(np.int32)
+    dst = rng.integers(0, n, (B, E)).astype(np.int32)
+    dst[:, :n] = np.arange(n)
+    deg = np.stack([np.bincount(d, minlength=n) for d in dst])
+    arrays = ((rng.standard_normal((B, n, d_feat)) * 0.1).astype(np.float32),
+              src, dst, np.ones((B, E), np.float32), deg.astype(np.float32),
+              rng.integers(0, classes, B).astype(np.int32))
+    return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+
+def phase_k_mfg_batched(mesh, smi: str, dev) -> None:
+    """``graphsage-reddit`` x ``minibatch_lg`` (the MFG step at the cell's
+    hop sizes) and ``pna`` x ``molecule`` (the batched step), each from
+    the registry's build, ``K_STEPS`` steps."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.configs.base import GNN_SHAPES, mfg_hop_sizes
+    from repro_torch.models.gnn.layers import get_gnn
+    from repro_torch.optim import adamw_init
+
+    import torch
+
+    s = GNN_SHAPES["minibatch_lg"]
+    b = REGISTRY["graphsage-reddit"].build("minibatch_lg", mesh)
+    dims = b.meta["dims"]
+    hops = mfg_hop_sizes(len(dims) - 1, s["batch_nodes"], s["fanout"],
+                         s["n_nodes"], 1)
+    check(hops == [(180224, 16384, 163840), (16384, 1024, 15360)]
+          and tuple(b.args[2].shape) == (1, 180224, 602),
+          f"graphsage-reddit x minibatch_lg build: hops {hops}, widths "
+          f"{dims}")
+    params = get_gnn("sage").init(torch.Generator().manual_seed(0), dims[0],
+                                  dims[1], dims[-1], len(dims) - 1,
+                                  device=dev)
+    x, flat, y = mfg_tensors(hops, dims[0], dims[-1], 0, dev)
+    losses, walls, peak = _k_steps(b.fn, params, adamw_init(params),
+                                   (x, flat, y), dev)
+    check(all(math.isfinite(v) for v in losses),
+          f"MFG step (graphsage-reddit x minibatch_lg, widths {dims}): "
+          f"walls {[round(w, 4) for w in walls]} s, losses {losses}, peak "
+          f"device {peak:.2f} GB ({smi})")
+    s = GNN_SHAPES["molecule"]
+    b = REGISTRY["pna"].build("molecule", mesh)
+    dims = b.meta["dims"]
+    check(dims == [32, 75, 75, 75, 16]
+          and tuple(b.args[2].shape) == (128, 30, 32),
+          f"pna x molecule build: 128 graphs of 30 nodes, widths {dims}")
+    params = get_gnn("pna").init(torch.Generator().manual_seed(0), dims[0],
+                                 dims[1], dims[-1], len(dims) - 1,
+                                 device=dev)
+    args = molecule_tensors(s["batch"], s["n_nodes"], s["n_edges"],
+                            dims[0], dims[-1], 0, dev)
+    losses, walls, peak = _k_steps(b.fn, params, adamw_init(params), args,
+                                   dev)
+    check(all(math.isfinite(v) for v in losses),
+          f"batched step (pna x molecule, widths {dims}): walls "
+          f"{[round(w, 4) for w in walls]} s, losses {losses}, peak device "
+          f"{peak:.3f} GB ({smi})")
+
+
+def phase_k_small(mesh, dev) -> None:
+    """The partitioned-halo step (one partition) against
+    ``full_graph_loss`` of the reordered graph, and split-KV decoding
+    against the plain decode, at world size 1 on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.plan import remap_edge_weight
+    from repro_torch.distributed.collectives import (
+        decode_attention_ref, make_split_kv_decode,
+    )
+    from repro_torch.distributed.gnn_parallel import (
+        build_partitioned_data, make_partitioned_train_step,
+    )
+    from repro_torch.graph import gcn_norm_coeffs, kronecker_graph
+    from repro_torch.graph.csr import add_self_loops
+    from repro_torch.graph.synthetic import random_features, random_labels
+    from repro_torch.models.gnn.layers import (
+        full_graph_loss, full_graph_topo, get_gnn,
+    )
+    from repro_torch.optim import adamw_init
+
+    g = add_self_loops(kronecker_graph(K_NODES, 8, seed=0))
+    ew = gcn_norm_coeffs(g)
+    data, n_local, n_halo, ro = build_partitioned_data(
+        g, np.zeros(g.n_nodes, np.int32), 1, ew)
+    x = random_features(g.n_nodes, 32, 0)[ro.perm]
+    y = random_labels(g.n_nodes, 8, 0)[ro.perm]
+    params = get_gnn("gcn").init(torch.Generator().manual_seed(0), 32, 16, 8,
+                                 2, device=dev)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    step = make_partitioned_train_step("gcn", n_local, n_halo, mesh)
+    _, _, loss = step(params, adamw_init(params), t(x),
+                      *[t(data[k][0]) for k in ("lsrc", "ldst", "lew",
+                                                "hsrc", "hdst", "hew",
+                                                "halo", "deg")], t(y))
+    topo = full_graph_topo(ro.graph.indptr, ro.graph.indices, g.n_nodes,
+                           remap_edge_weight(g, ro, ew), device=dev)
+    with torch.no_grad():
+        want = float(full_graph_loss(get_gnn("gcn"), params, x, topo, y))
+    err = abs(float(loss) - want)
+    check(err <= K_HALO_TOL,
+          f"halo step (gcn, {g.n_nodes} nodes, one partition) loss "
+          f"{float(loss)!r} within {K_HALO_TOL} of full_graph_loss "
+          f"{want!r} ({err:.3e})")
+    rng = np.random.default_rng(0)
+    q, k, v = (t(rng.standard_normal(sh).astype(np.float32)) for sh in
+               ((2, 1, 8, 16), (2, 64, 2, 16), (2, 64, 2, 16)))
+    for window in (None, 16):
+        got = make_split_kv_decode(mesh, ("model",), window=window)(
+            q, k, v, 50)
+        err = float((got - decode_attention_ref(q, k, v, 50,
+                                                window=window)).abs().max())
+        check(err <= K_KV_TOL,
+              f"split-KV decode (window {window}) within {K_KV_TOL} of the "
+              f"plain decode ({err:.3e})")
+
+
+def phase_k_card_vs_cpu(gloo, dev) -> None:
+    """The CAGNET (sage, on ``kronecker_graph(K_NODES, 8)`` plus self
+    loops), MFG (sage) and batched (pna) steps on the card (nccl) and on
+    the CPU (gloo) from the same inputs: losses within ``K_CMP_TOL``
+    relative, AdamW's ``m`` within ``K_CMP_TOL`` max-relative a leaf."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import mfg_hop_sizes
+    from repro_torch.distributed import gnn_parallel as gp
+    from repro_torch.graph import gcn_norm_coeffs, kronecker_graph
+    from repro_torch.graph.csr import add_self_loops
+    from repro_torch.graph.synthetic import random_features, random_labels
+    from repro_torch.models.gnn.layers import get_gnn
+    from repro_torch.optim import adamw_init
+
+    cpu = torch.device("cpu")
+    g = add_self_loops(kronecker_graph(K_NODES, 8, seed=0))
+    n = g.n_nodes
+    src, dst = g.edge_index()
+    cagnet = (random_features(n, 64, 0), src.astype(np.int32),
+              dst.astype(np.int32), gcn_norm_coeffs(g).astype(np.float32),
+              np.maximum(g.in_degrees(), 1).astype(np.float32),
+              random_labels(n, 8, 0))
+    hops = mfg_hop_sizes(2, 256, (15, 10), n, 1)
+    cases = [
+        ("CAGNET sage", "sage", [64, 32, 8],
+         lambda grp: gp.make_fullgraph_train_step("sage", n, group=grp),
+         lambda d: tuple(torch.from_numpy(a).to(d) for a in cagnet)),
+        ("MFG sage", "sage", [64, 32, 8],
+         lambda grp: gp.make_mfg_train_step("sage", hops, group=grp),
+         lambda d: mfg_tensors(hops, 64, 8, 1, d)),
+        ("batched pna", "pna", [32, 75, 75, 75, 16],
+         lambda grp: gp.make_batched_graph_train_step("pna", 30, group=grp),
+         lambda d: molecule_tensors(128, 30, 64, 32, 16, 1, d)),
+    ]
+    for label, model, dims, make, inputs in cases:
+        runs = []
+        for d, grp in ((dev, None), (cpu, gloo)):
+            params = get_gnn(model).init(torch.Generator().manual_seed(0),
+                                         dims[0], dims[1], dims[-1],
+                                         len(dims) - 1, device=d)
+            _, o, loss = make(grp)(params, adamw_init(params), *inputs(d))
+            runs.append((float(loss), o["m"]))
+        (lc, mc), (lh, mh) = runs
+        le = abs(lc - lh) / abs(lh)
+        me = _k_m_err(mc, mh)
+        check(le <= K_CMP_TOL and me <= K_CMP_TOL,
+              f"{label} step, card (nccl) vs CPU (gloo): loss {lc!r} vs "
+              f"{lh!r} ({le:.3e}), m max-relative {me:.3e} (within "
+              f"{K_CMP_TOL})")
+
+
+def expandable_segments(on: bool) -> None:
+    """The caching allocator's ``expandable_segments`` setting, from here
+    on (the setter is deprecated in favour of a private one in recent
+    releases; the warning is silenced)."""
+    import torch
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        torch.cuda.memory._set_allocator_settings(
+            f"expandable_segments:{on}")
+
+
+def phase_k(smi: str, dev) -> dict:
+    """Phase K: the registry and the distributed steps in a process group
+    of one rank (``nccl``, a file store; a ``gloo`` group beside it for
+    the CPU runs). Returns each kernel's launches over its runs (the
+    two-tower smoke's)."""
+    import gc
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.mesh import init_host_group, make_host_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the CAGNET step's (E, 128) messages and their gradients are 31.7 GB
+    # each: let the caching allocator grow segments in place (with fixed
+    # segments, layer 1's backward finds the 32 GB it needs free only in
+    # pieces split by the forward's small tensors, and runs out of memory)
+    expandable_segments(True)
+    store = tempfile.mkdtemp()
+    backend = init_host_group(os.path.join(store, "pg"), 0, 1,
+                              backend="nccl")
+    try:
+        gloo = dist.new_group(backend="gloo")
+        mesh = make_host_mesh(1, 1)
+        print(f"phase K: the registry and distributed/ over a {backend} "
+              f"group of {dist.get_world_size()} rank, mesh {mesh}",
+              flush=True)
+        reset_launches()
+        phase_k_registry(dev)
+        launches = dict(NO_LAUNCHES, **launch_counts())
+        for part in (lambda: phase_k_cagnet(mesh, smi, dev),
+                     lambda: phase_k_mfg_batched(mesh, smi, dev),
+                     lambda: phase_k_small(mesh, dev),
+                     lambda: phase_k_card_vs_cpu(gloo, dev)):
+            t0 = time.perf_counter()
+            reset_launches()
+            part()
+            check(not any(launch_counts().values()),
+                  f"no kernel launched by the distributed steps "
+                  f"({time.perf_counter() - t0:.1f} s)")
+    finally:
+        dist.destroy_process_group()
+        expandable_segments(False)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2589,19 +3040,23 @@ def main() -> int:
     t0 = time.perf_counter()
     lm = phase_i(dev)
     print(f"phase I: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    registry = phase_k(smi, dev)
+    print(f"phase K: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"all phases: {time.perf_counter() - t_all:.1f} s", flush=True)
 
     kernels = []
     for name, r in results.items():
         # each kernel's launches over the serving, GCN training, GAT
         # training, other families' training, phase J's runs, two-tower
-        # serving and training, LM serving and bsr_spmm aggregate paths,
-        # every count read right after its runs
+        # serving and training, LM serving, phase K's registry smokes and
+        # bsr_spmm aggregate paths, every count read right after its runs
         n = sum(serving[m][name] + training[m][name] for m in MODES)
         n += sum(counts[name] for counts in gat.values())
         n += sum(counts[name] for counts in families.values())
         n += baseline[name]
         n += tt_serving[name] + tt_training[name] + lm["launches"][name]
+        n += registry[name]
         n += bsr_launches if name == "bsr_spmm" else 0
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE[name],

@@ -1,15 +1,72 @@
-"""Model configurations and workload shapes (the reference's ``configs/``).
-Only what the ported paths run is here so far: the recsys and LM shapes
-and FLOP counts (``base.py``), the two-tower retrieval configuration
-(``two_tower_retrieval.py``) and ``phi3-medium-14b``
-(``phi3_medium_14b.py``). The reference's ``ArchSpec`` registry and
-builders are not ported."""
+"""Architecture registry: ``--arch <id>`` resolution for the launchers
+(the reference's ``configs/``).
+
+The registry holds the arch ids whose families are ported, in the
+reference's order: ``graphsage-reddit``, ``pna``, ``graphcast``,
+``gcn-cora``, ``two-tower-retrieval`` and the paper's own ``gcn-igbm-3l``.
+The five LM ids (``mixtral-8x7b``, ``deepseek-v2-236b``,
+``phi3-medium-14b``, ``command-r-plus-104b``, ``deepseek-67b``) join it
+with ``make_lm_arch``, which comes with LM training; until then
+``phi3_medium_14b`` holds the Phi-3 configuration the LM serving paths
+run. ``base`` holds the shapes and FLOP counts.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
 from repro_torch.configs.base import (
-    LM_SHAPES, RECSYS_SHAPES, lm_attention_correction, lm_model_flops,
+    GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES, ArchSpec, Built, Cell,
+    gnn_model_flops, lm_attention_correction, lm_model_flops, mfg_hop_sizes,
     recsys_model_flops,
 )
 
+_MODULES = [
+    "graphsage_reddit",
+    "pna",
+    "graphcast",
+    "gcn_cora",
+    "two_tower_retrieval",
+    "gcn_igbm",
+]
+
+ASSIGNED = [
+    "graphsage-reddit", "pna", "graphcast", "gcn-cora",
+    "two-tower-retrieval",
+]
+
+
+def _load() -> Dict[str, ArchSpec]:
+    import importlib
+
+    reg = {}
+    for m in _MODULES:
+        mod = importlib.import_module(f"repro_torch.configs.{m}")
+        reg[mod.ARCH.name] = mod.ARCH
+    return reg
+
+
+REGISTRY: Dict[str, ArchSpec] = _load()
+
+
+def get_arch(name: str) -> ArchSpec:
+    return REGISTRY[name]
+
+
+def list_cells(assigned_only: bool = True) -> List[Tuple[str, str, Cell]]:
+    """All (arch, shape, cell) combinations of the registered archs (of
+    the assigned ones only by default)."""
+    out = []
+    names = ASSIGNED if assigned_only else list(REGISTRY)
+    for name in names:
+        arch = REGISTRY[name]
+        for shape, cell in arch.cells.items():
+            out.append((name, shape, cell))
+    return out
+
+
 __all__ = [
-    "LM_SHAPES", "RECSYS_SHAPES", "lm_attention_correction",
-    "lm_model_flops", "recsys_model_flops",
+    "ASSIGNED", "ArchSpec", "Built", "Cell", "GNN_SHAPES", "LM_SHAPES",
+    "RECSYS_SHAPES", "REGISTRY", "get_arch", "gnn_model_flops",
+    "list_cells", "lm_attention_correction", "lm_model_flops",
+    "mfg_hop_sizes", "recsys_model_flops",
 ]

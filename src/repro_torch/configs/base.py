@@ -1,9 +1,77 @@
-"""Workload shapes and model FLOP counts (the part of the reference's
-``configs/base.py`` that the ported paths use: the recsys and LM shapes,
-their FLOP counts and the LM's closed-form attention term)."""
+"""Config registry substrate (the reference's ``configs/base.py``): arch
+specs, cells (arch x shape), the built step of a cell, the workload shapes
+and the model FLOP counts.
+
+Every registered architecture has an :class:`ArchSpec` whose ``build(shape,
+mesh)`` returns a :class:`Built`: the step function of that cell, its
+abstract arguments (``meta``-device tensors: shapes and dtypes, no memory),
+one ``torch.distributed.tensor`` placement tuple per argument (over the
+mesh's ``("data", "model")`` dims) and ``meta`` (``model_flops``, the
+analytic model FLOPs of one call, ``kind`` and, for GNNs, ``dims``). The
+step takes each argument's local shard on its rank: the part of the
+argument's global shape that its placements give the rank.
+"""
 from __future__ import annotations
 
-from typing import Any, Dict
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+
+@dataclasses.dataclass
+class Built:
+    fn: Callable
+    args: Tuple
+    in_shardings: Tuple
+    meta: Dict[str, Any]
+
+
+@dataclasses.dataclass
+class Cell:
+    kind: str                      # train | prefill | decode | serve | retrieval
+    skip: Optional[str] = None     # reason if this cell is skipped
+
+
+@dataclasses.dataclass
+class ArchSpec:
+    """An architecture of the registry. ``smoke(device=None)`` runs its
+    reduced configuration once (the CUDA card unless ``device="cpu"``) and
+    returns ``loss``, ``grad_norm`` and ``finite``; ``config`` is the
+    family's configuration (a ``GNNArch``, whose ``model`` names the GNN
+    family, or a ``TwoTowerConfig``). ``layer_calib`` is the reference's
+    (L1, L2, L_full) depth calibration of scanned-layer archs, None for
+    the others."""
+
+    name: str
+    family: str                    # lm | gnn | recsys
+    describe: str
+    cells: Dict[str, Cell]
+    build: Callable[..., Built]
+    smoke: Callable[..., Dict[str, Any]]
+    layer_calib: Optional[Tuple[int, int, int]] = None
+    config: Any = None
+
+    def runnable_shapes(self) -> List[str]:
+        return [s for s, c in self.cells.items() if c.skip is None]
+
+
+# the assigned GNN shape set (shared by the GNN archs)
+GNN_SHAPES: Dict[str, Dict[str, Any]] = {
+    "full_graph_sm": dict(
+        kind="fullgraph", n_nodes=2708, n_edges=10556, d_feat=1433, classes=7,
+    ),
+    "minibatch_lg": dict(
+        kind="mfg", n_nodes=232965, n_edges=114615892, batch_nodes=1024,
+        fanout=(15, 10), d_feat=602, classes=41,
+    ),
+    "ogb_products": dict(
+        kind="fullgraph", n_nodes=2449029, n_edges=61859140, d_feat=100,
+        classes=47,
+    ),
+    "molecule": dict(
+        kind="batched", n_nodes=30, n_edges=64, batch=128, d_feat=32,
+        classes=16,
+    ),
+}
 
 LM_SHAPES: Dict[str, Dict[str, Any]] = {
     "train_4k": dict(kind="train", seq=4096, batch=256),
@@ -18,6 +86,69 @@ RECSYS_SHAPES: Dict[str, Dict[str, Any]] = {
     "serve_bulk": dict(kind="serve", batch=262144),
     "retrieval_cand": dict(kind="retrieval", batch=1, n_candidates=1_000_000),
 }
+
+
+def mfg_hop_sizes(
+    n_layers: int, batch_nodes: int, fanout, n_nodes: int, n_groups: int,
+) -> List[Tuple[int, int, int]]:
+    """Static padded hop sizes of the sampled-training cell, innermost
+    first ``[(n_src, n_dst, n_edges)]``, each rounded up to a multiple of 8.
+
+    GraphSAINT-style: the innermost ``n_layers - len(fanout)`` layers run on
+    the sampled subgraph itself; the last ``len(fanout)`` layers contract
+    through the MFG hops (``batch_nodes / n_groups`` seeds a group)."""
+    seeds = max(batch_nodes // n_groups, 1)
+    sizes = [seeds]
+    edges = []
+    for f in fanout:  # outermost (seed side) first
+        e = sizes[-1] * f
+        s = min(sizes[-1] + e, n_nodes)
+        edges.append(e)
+        sizes.append(s)
+
+    def r8(x):
+        return int(((x + 7) // 8) * 8)
+
+    hops = []
+    inner = r8(sizes[-1])
+    sub_edges = r8(edges[-1])
+    for _ in range(max(n_layers - len(fanout), 0)):
+        hops.append((inner, inner, sub_edges))
+    for i in reversed(range(len(fanout))):
+        hops.append((r8(sizes[i + 1]), r8(sizes[i]), r8(edges[i])))
+    return hops
+
+
+def gnn_model_flops(
+    dims, n_nodes: int, n_edges: int, train: bool = True,
+    model: str = "gcn",
+) -> float:
+    """Model FLOPs of one GNN call over ``n_nodes`` / ``n_edges`` at widths
+    ``dims``, times 3 in training. Edge-MLP models (graphcast) do O(d^2)
+    work per edge, which dominates at ogb scale."""
+    f = 0.0
+    for i in range(len(dims) - 1):
+        d_in, d_out = dims[i], dims[i + 1]
+        if model == "graphcast":
+            # edge MLP (2d->h->h) + node MLP ((d+h)->h->h) + residual proj
+            h = d_out
+            f += 2.0 * n_edges * (2 * d_in * h + h * h)
+            f += 2.0 * n_nodes * ((d_in + h) * h + h * h + d_in * h)
+        elif model == "pna":
+            # pre-MLP per node, 4 aggregators x 3 scalers, post-MLP
+            f += 2.0 * n_nodes * d_in * d_in
+            f += 8.0 * n_edges * d_in
+            f += 2.0 * n_nodes * (12 * d_in + d_in) * d_out
+        elif model == "sage":
+            f += 2.0 * n_edges * d_in
+            f += 4.0 * n_nodes * d_in * d_out        # self + neighbor
+        elif model == "gat":
+            f += 8.0 * n_edges * d_out               # scores + weighted agg
+            f += 2.0 * n_nodes * d_in * d_out
+        else:  # gcn/gin
+            f += 2.0 * n_edges * d_in                # aggregation
+            f += 2.0 * n_nodes * d_in * d_out        # vertex matmul
+    return (3.0 if train else 1.0) * f
 
 
 def recsys_model_flops(cfg, kind: str, batch: int, n_candidates: int = 0) -> float:

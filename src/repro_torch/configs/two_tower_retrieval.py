@@ -7,6 +7,7 @@ unverified]
 smoke: embed 16, MLP (32, 16), bags of 4, vocab 1000)."""
 import dataclasses
 
+from repro_torch.configs.builders import make_recsys_arch
 from repro_torch.models.recsys.two_tower import TwoTowerConfig
 
 CONFIG = TwoTowerConfig(
@@ -20,3 +21,7 @@ SMOKE = dataclasses.replace(
     CONFIG, embed_dim=16, tower_mlp=(32, 16), bag_size=4,
     user_vocab=1000, item_vocab=1000,
 )
+
+# the registry's description is the docstring's first paragraph (the
+# reference module's whole docstring)
+ARCH = make_recsys_arch(CONFIG, __doc__.split("\n\n", 1)[0].strip(), SMOKE)

@@ -23,17 +23,13 @@ import functools
 import sys
 from typing import Optional, Sequence
 
-# the GNN arch ids of the reference's config registry and the model family
-# each one names (the configs package is not ported); every family is in
-# ``GNN_REGISTRY`` (``gat`` and ``gin`` have no arch id: the smokes below
-# take a family name)
-GNN_ARCHS = {
-    "gcn-cora": "gcn",
-    "gcn-igbm-3l": "gcn",
-    "graphsage-reddit": "sage",
-    "pna": "pna",
-    "graphcast": "graphcast",
-}
+from repro_torch.configs import REGISTRY
+
+# the registry's GNN arch ids and the model family each one's ``GNNArch``
+# names (``gat`` and ``gin`` have no arch id: the smokes below take a
+# family name)
+GNN_ARCHS = {name: arch.config.model for name, arch in REGISTRY.items()
+             if arch.family == "gnn"}
 
 
 @functools.lru_cache(maxsize=1)
@@ -232,8 +228,8 @@ def _infer_smoke(
 def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="a GNN arch id (e.g. gcn-cora); the model family "
-                         "is recovered from the config naming convention")
+                    help="a GNN arch id of the registry (e.g. gcn-cora); "
+                         "its GNNArch names the model family")
     ap.add_argument("--pipeline-depth", type=int, default=2,
                     help="async pipeline lookahead (0 = serial engine)")
     ap.add_argument("--gather-workers", type=int, default=1)

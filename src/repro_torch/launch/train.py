@@ -1,44 +1,50 @@
-"""Training launcher: ``python -m repro_torch.launch.train --arch <id> --offload``.
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
 
-The port's counterpart of ``python -m repro.launch.train --offload``: runs
-the storage-offloaded SSO training engine (repro_torch/core/engine.py) for a
-GNN arch on a small synthetic graph on the CUDA card — a serial and a
-pipelined run, each of ``epochs`` epochs (forward, loss, backward) followed
-by an AdamW update — and checks that the losses and gradients are finite
-and that the pipelined run equals the serial one bitwise.
+The port's counterpart of ``python -m repro.launch.train``. ``--arch``
+resolves through the registry (``repro_torch.configs.REGISTRY``); a GNN
+arch's family is its ``GNNArch.model``. ``--list`` prints each registered
+arch with its family and cells, as the reference's ``--list`` does.
 
-``--arch two-tower-retrieval --smoke`` is the reference launcher's
-``arch.smoke()`` route for the recsys arch: one loss and gradient at the
-``SMOKE`` widths on the card (:func:`_recsys_smoke`), printed as ``loss``,
-``grad_norm`` and ``finite``, with the kernel path held against the
-reference path bitwise.
+``--smoke`` runs the arch's ``ArchSpec.smoke()`` (one loss and its
+gradients at reduced widths) on the CUDA card, ``--device cpu`` on the
+CPU, and prints ``loss``, ``grad_norm`` and ``finite``: for a GNN arch a
+whole-graph forward on ``kronecker_graph(512, 6)``; for
+``two-tower-retrieval`` the ``SMOKE`` widths with the kernel path held
+against the reference path bitwise. A registered arch with neither
+``--smoke`` nor ``--offload`` exits 2: the reference hands its full
+configuration to the dry run, which comes with its slice of the port.
 
-``--arch phi3-medium-14b --shape prefill_32k|decode_32k`` is the
-counterpart of the reference launcher's full-config branch (which hands an
-LM cell to the dry run): it runs that cell's serving step on the card at
-``CONFIG`` widths, weights from ``torch.Generator`` seed 0 and tokens from
-numpy seed 0 (:func:`_lm_prefill`, :func:`_lm_decode`). ``--batch``,
-``--seq`` and ``--layers`` cut the cell, ``--kernels`` routes the prefill's
-attention; ``--smoke`` runs at the ``SMOKE`` widths (batch 2, 64 tokens by
-default) and takes ``--device cpu``. It prints wall, tokens/s, achieved
-TFLOP/s (``lm_model_flops`` plus ``lm_attention_correction``) and peak
-device GB. ``train_4k``, and ``--smoke`` without a serving shape (the
-reference's ``--smoke`` is a loss and its gradients), exit 2: LM training
-comes with its slice. ``long_500k`` is skipped for a full-attention arch,
-with the reference's reason.
+``--offload`` runs the storage-offloaded SSO training engine
+(repro_torch/core/engine.py) for a GNN arch on a small synthetic graph on
+the CUDA card — a serial and a pipelined run, each of ``epochs`` epochs
+(forward, loss, backward) followed by an AdamW update — and checks that
+the losses and gradients are finite and that the pipelined run equals the
+serial one bitwise.
+
+``--arch phi3-medium-14b --shape prefill_32k|decode_32k`` (not yet in the
+registry: it joins with ``make_lm_arch``) runs that cell's serving step on
+the card at ``CONFIG`` widths, weights from ``torch.Generator`` seed 0 and
+tokens from numpy seed 0 (:func:`_lm_prefill`, :func:`_lm_decode`).
+``--batch``, ``--seq`` and ``--layers`` cut the cell, ``--kernels`` routes
+the prefill's attention; ``--smoke`` runs at the ``SMOKE`` widths (batch
+2, 64 tokens by default) and takes ``--device cpu``. It prints wall,
+tokens/s, achieved TFLOP/s (``lm_model_flops`` plus
+``lm_attention_correction``) and peak device GB. ``train_4k``, and
+``--smoke`` without a serving shape (the reference's ``--smoke`` is a loss
+and its gradients), exit 2: LM training comes with its slice.
+``long_500k`` is skipped for a full-attention arch, with the reference's
+reason.
 
 Exit status 0 iff every check passes (or the cell is skipped); 2 for an
-arch that is neither a GNN arch, ``two-tower-retrieval`` nor an LM arch,
-for a GNN arch without ``--offload``, for ``two-tower-retrieval`` without
-``--smoke`` (the reference's dry-run path is not ported) and for LM
-training.
+unknown arch, ``--offload`` on a non-GNN arch, ``two-tower-retrieval``
+without ``--smoke``, a full configuration (the dry run) and LM training.
 
 With ``--offload``, ``--telemetry-port PORT`` serves live Prometheus
 metrics (``GET /metrics``, :class:`~repro_torch.obs.live.TelemetryServer`;
 0 picks a free port) over the requested depth's run, and ``--ledger
 [PATH]`` appends one ``train_offload_smoke`` record
 (:mod:`repro_torch.obs.ledger`, ``backend`` the device type) to that JSONL
-ledger. ``--device cpu`` runs the smoke on the CPU.
+ledger. ``--device cpu`` runs the smokes on the CPU.
 """
 from __future__ import annotations
 
@@ -46,7 +52,8 @@ import argparse
 import sys
 from typing import Optional, Sequence
 
-from repro_torch.launch.infer import GNN_ARCHS, _smoke_graph
+from repro_torch.configs import REGISTRY
+from repro_torch.launch.infer import _smoke_graph
 
 
 def _rel_err(a, b) -> float:
@@ -58,62 +65,10 @@ def _rel_err(a, b) -> float:
     return float(np.max(np.abs(a - b)) / max(np.max(np.abs(a)), 1e-12))
 
 
-# recsys arch ids (``--smoke`` only)
-RECSYS_ARCHS = ("two-tower-retrieval",)
-RECSYS_SMOKE_BATCH = 8
-
-
 def _recsys_smoke(device=None) -> dict:
-    """The reference's ``make_recsys_arch(...).smoke()`` for
-    ``two-tower-retrieval`` on ``device`` (the CUDA card unless
-    ``device="cpu"``): the ``SMOKE`` model from ``torch.Generator`` seed 0,
-    8 users and items of random ids (numpy seeds 1 and 2), and one in-batch
-    softmax loss with its gradients, through the kernel path
-    (``kernels="auto"``) and the reference path.
-
-    Returns ``loss``, ``acc``, ``grad_norm`` (the sum of every gradient's
-    absolute values, as the reference prints it), ``finite`` (loss and
-    every gradient), ``kernel_matches_reference`` (loss and every gradient
-    bitwise) and ``launches`` (each kernel's launches in the kernel path's
-    call: two ``embedding_bag`` and two ``scatter_add`` on the card, none on
-    the CPU, checked in ``launches_ok``)."""
-    import numpy as np
-    import torch
-
-    from repro_torch.configs.two_tower_retrieval import SMOKE as cfg
-    from repro_torch.device import resolve_device
-    from repro_torch.kernels import launch_counts, reset_launches
-    from repro_torch.models.recsys.two_tower import (
-        init_two_tower, two_tower_value_and_grad,
-    )
-
-    device = resolve_device(device)
-    model = init_two_tower(cfg, torch.Generator(device).manual_seed(0),
-                           device)
-
-    def ids(seed, n_fields, vocab):
-        a = np.random.default_rng(seed).integers(
-            0, vocab, (RECSYS_SMOKE_BATCH, n_fields, cfg.bag_size))
-        return torch.from_numpy(a.astype(np.int32)).to(device)
-
-    u = ids(1, cfg.n_user_fields, cfg.user_vocab)
-    i = ids(2, cfg.n_item_fields, cfg.item_vocab)
-    reset_launches()
-    (loss, acc), grads = two_tower_value_and_grad(model, u, i, cfg, "auto")
-    launches = {k: v for k, v in launch_counts().items() if v}
-    (loss_r, _), grads_r = two_tower_value_and_grad(model, u, i, cfg,
-                                                    "reference")
-    want = ({"embedding_bag": 2, "scatter_add": 2}
-            if device.type == "cuda" else {})
-    return dict(
-        loss=float(loss), acc=float(acc),
-        grad_norm=float(sum(float(g.abs().sum()) for g in grads.values())),
-        finite=bool(torch.isfinite(loss)) and all(
-            bool(torch.isfinite(g).all()) for g in grads.values()),
-        kernel_matches_reference=bool(torch.equal(loss, loss_r)) and all(
-            torch.equal(grads[k], grads_r[k]) for k in grads),
-        launches=launches, launches_ok=launches == want,
-    )
+    """``two-tower-retrieval``'s ``ArchSpec.smoke`` on ``device`` (the CUDA
+    card unless ``device="cpu"``)."""
+    return REGISTRY["two-tower-retrieval"].smoke(device=device)
 
 
 # LM arch ids -> their configuration module (``CONFIG``, ``SMOKE``)
@@ -599,10 +554,11 @@ def _train_smoke(
 
 def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True,
-                    help="a GNN arch id (e.g. gcn-cora; the model family "
-                         "is recovered from the config naming convention), "
-                         "two-tower-retrieval or phi3-medium-14b")
+    ap.add_argument("--arch", default=None,
+                    help="an arch id of the registry (--list), or "
+                         "phi3-medium-14b")
+    ap.add_argument("--list", action="store_true",
+                    help="print the registered archs and their cells")
     ap.add_argument("--offload", action="store_true",
                     help="run the storage-offloading engine smoke (GNN "
                          "archs; uses the SSO pipeline runtime)")
@@ -619,8 +575,8 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="write a Chrome/Perfetto trace_event timeline of "
                          "the --offload run (open in ui.perfetto.dev)")
     ap.add_argument("--smoke", action="store_true",
-                    help="one loss and gradient of a recsys arch at its "
-                         "SMOKE widths on the card; with an LM --shape, "
+                    help="the arch's reduced configuration: one loss and "
+                         "gradient (ArchSpec.smoke); with an LM --shape, "
                          "that cell at the LM's SMOKE widths")
     ap.add_argument("--shape", default=None,
                     help="an LM cell: prefill_32k or decode_32k (train_4k "
@@ -649,34 +605,52 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="append a run record of the --offload run to this "
                          "JSONL ledger (repro_torch.obs.ledger)")
     ap.add_argument("--device", default=None,
-                    help="--offload and LM cells: the device (default: the "
-                         "CUDA card; 'cpu' for a CPU run)")
+                    help="--offload, --smoke and LM cells: the device "
+                         "(default: the CUDA card; 'cpu' for a CPU run)")
     args = ap.parse_args(argv)
     if args.trace:
         import logging
         logging.basicConfig(level=logging.INFO,
                             format="%(name)s %(message)s")
 
+    if args.list:
+        for name, arch in REGISTRY.items():
+            shapes = ", ".join(
+                s + (" [skip]" if c.skip else "")
+                for s, c in arch.cells.items()
+            )
+            print(f"{name:24s} [{arch.family}] {shapes}")
+        return
+    if args.arch is None:
+        ap.error("--arch is required (or --list)")
     if args.arch in LM_ARCHS:
         sys.exit(_lm_main(args))
-    if args.arch in RECSYS_ARCHS:
+    arch = REGISTRY.get(args.arch)
+    if arch is None:
+        gnn = sorted(n for n, a in REGISTRY.items() if a.family == "gnn")
+        print(f"{args.arch}: not a registered arch; training requires a GNN "
+              f"arch (one of {gnn}), one of {sorted(REGISTRY)} or one of "
+              f"{sorted(LM_ARCHS)}")
+        sys.exit(2)
+    if arch.family == "recsys":
         if args.offload or not args.smoke:
             print(f"{args.arch}: only --smoke is ported for recsys archs "
                   f"(--offload needs a GNN arch)")
             sys.exit(2)
-        r = _recsys_smoke()
+        r = arch.smoke(device=args.device)
         print(f"{args.arch} smoke: {r}")
         ok = r["finite"] and r["kernel_matches_reference"] and r["launches_ok"]
         sys.exit(0 if ok else 1)
-    if args.arch not in GNN_ARCHS:
-        print(f"{args.arch}: training requires a GNN arch "
-              f"(one of {sorted(GNN_ARCHS)}), one of {sorted(RECSYS_ARCHS)} "
-              f"or one of {sorted(LM_ARCHS)}")
-        sys.exit(2)
-    model = GNN_ARCHS[args.arch]
+    if args.smoke and not args.offload:
+        r = arch.smoke(device=args.device)
+        print(f"{args.arch} smoke: {r}")
+        sys.exit(0 if r["finite"] and r["grad_norm"] > 0 else 1)
     if not args.offload:
-        print(f"{args.arch}: only --offload (the SSO engine) is ported")
+        print(f"{args.arch}: only --offload (the SSO engine) and --smoke "
+              f"run here; the full configuration's dry run comes with its "
+              f"slice of the port (launch/dryrun.py)")
         sys.exit(2)
+    model = arch.config.model
     r = _train_smoke(
         model, args.pipeline_depth, args.gather_workers,
         transfer_stage=not args.no_transfer_stage,

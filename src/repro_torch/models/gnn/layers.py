@@ -172,9 +172,12 @@ def _dense(d_in: int, d_out: int, generator: torch.Generator,
     """The reference's ``_dense``: weight ``N(0, 1) * scale`` (default
     ``1/sqrt(d_in)``), zero bias. ``skip_init``: no draw from the global
     RNG; the weight is drawn on the CPU from the explicit generator, so
-    one seed gives the same weights on every device."""
+    one seed gives the same weights on every device. On the ``meta``
+    device (abstract parameters: shapes only) nothing is drawn."""
     scale = scale if scale is not None else 1.0 / np.sqrt(d_in)
     lin = nn.utils.skip_init(nn.Linear, d_in, d_out, device=device)
+    if lin.weight.is_meta:
+        return lin
     with torch.no_grad():
         w = torch.randn((d_out, d_in), generator=generator)
         lin.weight.copy_(w * scale)
@@ -230,8 +233,11 @@ def _relu(x: torch.Tensor) -> torch.Tensor:
 
 
 def _leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """``jax.nn.leaky_relu``: ``where(x >= 0, x, slope * x)``, whose
+    gradient at exactly 0 is 1 (``F.leaky_relu``'s is ``slope``; a GAT
+    score is exactly 0 where both endpoint rows are zero)."""
     if _probe is None:
-        return torch.nn.functional.leaky_relu(x, slope)
+        return torch.where(x >= 0, x, x * slope)
     return _probe(x, slope)
 
 

@@ -350,3 +350,50 @@ def test_launcher_exit_codes(monkeypatch, capsys):
     with pytest.raises(SystemExit) as ei:
         launch_train.main(["--arch", "gcn-cora", "--offload"])
     assert ei.value.code == 1
+
+
+def test_launcher_list_prints_the_reference_lines(monkeypatch, capsys):
+    """``--list`` prints the reference's ``--list`` lines of the ids both
+    registries hold (the reference's needs an ``--arch``; it ignores it)."""
+    from repro.launch import train as jax_launch_train
+    from repro_torch.configs import REGISTRY
+
+    monkeypatch.setattr(sys, "argv", ["train", "--arch", "gcn-cora",
+                                      "--list"])
+    jax_launch_train.main()
+    ref = capsys.readouterr().out.splitlines()
+    launch_train.main(["--list"])
+    got = capsys.readouterr().out.splitlines()
+    assert got == [line for line in ref if line.split()[0] in REGISTRY]
+    assert [line.split()[0] for line in got] == list(REGISTRY)
+
+
+def test_launcher_resolves_gnn_archs_through_the_registry(monkeypatch,
+                                                          capsys):
+    """A GNN arch's family is its ``GNNArch.model`` (the reference takes
+    the id's first word, which is not a family for ``graphsage-reddit``):
+    ``--smoke`` runs ``ArchSpec.smoke`` and ``--offload`` the SSO engine
+    smoke, on the CPU with ``--device cpu``; a full config exits 2."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.launch.infer import GNN_ARCHS
+
+    assert GNN_ARCHS == {n: a.config.model for n, a in REGISTRY.items()
+                         if a.family == "gnn"}
+    assert GNN_ARCHS["graphsage-reddit"] == "sage"
+    for argv, say in (
+            (["--arch", "gcn-cora", "--smoke", "--device", "cpu"],
+             "gcn-cora smoke: {'loss'"),
+            (["--arch", "graphsage-reddit", "--offload", "--pipeline-depth",
+              "1", "--device", "cpu"],
+             "pipeline_matches_serial': True")):
+        with pytest.raises(SystemExit) as ei:
+            launch_train.main(argv)
+        assert ei.value.code == 0
+        assert say in capsys.readouterr().out
+    with pytest.raises(SystemExit) as ei:
+        launch_train.main(["--arch", "graphcast"])
+    assert ei.value.code == 2
+    assert "dry run" in capsys.readouterr().out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_train.main(["--arch", "pna", "--smoke"])
