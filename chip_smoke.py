@@ -186,11 +186,34 @@ and spill report and checks that the bf16 flash kernel's SASS holds
   (kernel mode) within ``LM_ROUNDTRIP_TOL``; (5) checks 1 and 4 in
   float32 at the same widths and 2 layers, within ``LM_F32_TOL``.
 
+- Phase L, dense-LM training: (1) ``phi3-medium-14b`` ``train_4k`` at
+  its published widths (d_model 5120, 40 / 10 heads of 128, d_ff 17,920,
+  vocab 100,352, bf16, 4,096 tokens) cut to ``L_LAYERS`` layers and batch
+  ``L_BATCH`` (from 40 and 256), ``L_STEPS`` steps of ``make_train_step``
+  (AdamW in place) on one batch through the launcher's ``_lm_train``:
+  every loss, ``m`` and ``v`` finite, the loss falling, no kernel launch
+  (training attends through ``chunked_attention``); prints each step's
+  loss, wall, tokens/s and TFLOP/s, the peak device GB beside
+  ``lm_cell_bytes``' reckoning; (2) remat on vs off at the same widths,
+  ``L_REMAT_LAYERS`` layers, batch 1: the loss and every gradient
+  bitwise, and the checkpointed ``chunked_attention``'s q, k, v gradients within
+  ``L_ATTN_TOL`` of plain autograd's in float32; (3) each dense id's
+  ``SMOKE``: ``lm_loss``, its gradients and one in-place AdamW step on the
+  card and the CPU within ``L_CPU_TOL``; (4) ``command-r-plus-104b``
+  (groups of 12) and ``deepseek-67b`` (groups of 8) at ``CONFIG`` widths,
+  ``L_FLASH_LAYERS`` layers: a ``CHECK_SEQ``-token prefill, kernel within
+  ``LM_KERNEL_TOL`` of reference, exactly ``L_FLASH_LAYERS``
+  ``flash_attention`` launches each (counted in the kernel line), and
+  the wrapper at each id's prefill shape against the plain version as
+  phase A holds it (those launches not counted). The
+  three ids' ``smoke()`` run in phase K's registry pass.
+
 - Phase K, the registry and ``distributed/``, in a process group of one
   rank (``nccl``, a file store; a ``gloo`` group beside it for the CPU
   runs) over a ``(1, 1)`` ``("data", "model")`` mesh, with the caching
   allocator's expandable segments on: (1) every registered arch's
-  ``smoke()`` on the card, finite with ``grad_norm > 0`` (the two-tower
+  ``smoke()`` on the card (the three dense LMs' ``lm_loss`` and
+  gradients included), finite with ``grad_norm > 0`` (the two-tower
   one also kernel == reference bitwise, with its launches), and the count
   of ``list_cells()``; (2) ``graphsage-reddit`` x ``ogb_products`` through
   the registry's CAGNET build at the cell's full size (2,449,029 nodes,
@@ -327,6 +350,22 @@ LM_KERNEL_TOL = 5e-2
 LM_ROUNDTRIP_TOL = 5e-2
 LM_F32_LAYERS = 2
 LM_F32_TOL = 1e-4
+# phase L: phi3-medium-14b train_4k at its published widths, cut in depth
+# (40 -> L_LAYERS) and batch (256 -> L_BATCH) to fit one card (PERF.md
+# §4: about 46 GB reckoned), L_STEPS steps on one batch; remat on vs off
+# at L_REMAT_LAYERS layers, batch 1; the flash kernel at the other two
+# dense ids' widths, L_FLASH_LAYERS layers, a CHECK_SEQ-token prefill
+L_LAYERS = 4
+L_BATCH = 2
+L_SEQ = 4096
+L_STEPS = 3
+L_REMAT_LAYERS = 2
+L_FLASH_LAYERS = 2
+# the checkpointed chunked_attention's q, k, v gradients against plain
+# autograd's, float32, max-relative
+L_ATTN_TOL = 1e-6
+# card against CPU at each dense id's SMOKE, max-relative
+L_CPU_TOL = 1e-4
 # queued_ms: the device sleeps ~25 ms (H100 clocks) while the host queues
 SLEEP_CYCLES = 50_000_000
 # phase A: the main shape against the exact FMA oracle: a seeded sample of
@@ -988,6 +1027,47 @@ def phase_a_bag(dev) -> dict:
     return out
 
 
+def flash_inputs(B: int, S: int, Hq: int, Hkv: int, D: int, dev):
+    """bf16 q ``(B, S, Hq, D)`` and k, v ``(B, S, Hkv, D)`` on the card,
+    standard normal from a ``torch.Generator`` of seed 0."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((B, S, Hq, D), generator=gen, device=dev).bfloat16()
+    k = torch.randn((B, S, Hkv, D), generator=gen, device=dev).bfloat16()
+    v = torch.randn((B, S, Hkv, D), generator=gen, device=dev).bfloat16()
+    return q, k, v
+
+
+def flash_vs_plain(q, k, v):
+    """One causal ``flash_attention`` launch on bf16 ``q``, ``k``, ``v``
+    held against ``flash_attention_ref`` on the same inputs: every element
+    within 2^-7 |plain| + 1e-6, at least 99% of them bitwise equal, and a
+    rerun bitwise. Returns ``(kernel's output, plain's, max abs err)``."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    t0 = time.perf_counter()
+    kern = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    plain = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    kf, pf = kern.float(), plain.float()
+    err = (kf - pf).abs()
+    check(bool(torch.all(err <= 2.0 ** -7 * pf.abs() + 1e-6)),
+          f"flash_attention bf16 within 2^-7 |plain| + 1e-6 of plain at "
+          f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, causal (max abs err "
+          f"{float(err.max()):.3e}; first launch {t_first:.3f} s)")
+    same = float((kern == plain).float().mean())
+    check(same >= 0.99, f"flash_attention: {same:.6f} of the elements "
+          f"bitwise equal to plain (>= 0.99)")
+    check(torch.equal(ops.flash_attention(q, k, v), kern),
+          "flash_attention deterministic (rerun bitwise)")
+    return kern, plain, float(err.max())
+
+
 def phase_a_flash(dev) -> dict:
     """``flash_attention`` at small shapes (the JAX kernel tests' grid, a
     ragged S of 200, Sq != Skv both ways, D 64 and the LM smoke's D 8;
@@ -1045,29 +1125,8 @@ def phase_a_flash(dev) -> dict:
 
     # the main path's shape: one prefill launch of phase I
     B, S, Hq, Hkv, D = 1, PREFILL_SEQ, 40, 10, 128
-    gen = torch.Generator(device=dev).manual_seed(0)
-    q = torch.randn((B, S, Hq, D), generator=gen, device=dev).bfloat16()
-    k = torch.randn((B, S, Hkv, D), generator=gen, device=dev).bfloat16()
-    v = torch.randn((B, S, Hkv, D), generator=gen, device=dev).bfloat16()
-    t0 = time.perf_counter()
-    kern = ops.flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    t_first = time.perf_counter() - t0
-    plain = ref.flash_attention_ref(q, k, v)
-    torch.cuda.synchronize()
-    kf, pf = kern.float(), plain.float()
-    err = (kf - pf).abs()
-    check(bool(torch.all(err <= 2.0 ** -7 * pf.abs() + 1e-6)),
-          f"flash_attention bf16 within 2^-7 |plain| + 1e-6 of plain at "
-          f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, causal (max abs err "
-          f"{float(err.max()):.3e}; first launch {t_first:.3f} s)")
-    same = float((kern == plain).float().mean())
-    check(same >= 0.99, f"flash_attention: {same:.6f} of the elements "
-          f"bitwise equal to plain (>= 0.99)")
-    check(torch.equal(ops.flash_attention(q, k, v), kern),
-          "flash_attention deterministic (rerun bitwise)")
-    max_err = float(err.max())
-    del kf, pf, err
+    q, k, v = flash_inputs(B, S, Hq, Hkv, D, dev)
+    kern, plain, max_err = flash_vs_plain(q, k, v)
     pairs = B * Hq * S * (S + 1) / 2.0
     flops = 4.0 * D * pairs
     nbytes = 2.0 * (q.numel() + k.numel() + v.numel() + kern.numel())
@@ -2530,6 +2589,248 @@ def roundtrip(model, tol: float, tally) -> None:
           f"max-relative ({rt:.3e}; the reference's float32 figure is 2e-5)")
 
 
+# ----------------------------------------------------------------- phase L
+def t_rel_err(a, b) -> float:
+    """``max |a - b| / max |a|`` on the tensors' device (float32: the
+    difference of two bf16 or float32 values is exact there)."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / a.abs().max().clamp_min(1e-30))
+
+
+def phase_l_train(smi: str, dev) -> None:
+    """Phi-3-medium-14B ``train_4k`` at its published widths, cut to
+    ``L_LAYERS`` layers and batch ``L_BATCH`` of ``L_SEQ`` tokens: the
+    launcher's ``_lm_train`` (``make_train_step``, AdamW in place),
+    ``L_STEPS`` steps on one batch (numpy seed 0, weights from
+    ``torch.Generator`` seed 0)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.phi3_medium_14b import CONFIG
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.train import _lm_train, lm_cell_bytes
+    from repro_torch.models.lm.transformer import init_lm_params
+
+    cfg = dataclasses.replace(CONFIG, n_layers=L_LAYERS)
+    need = lm_cell_bytes(cfg, "train", L_BATCH, L_SEQ)
+    print(f"phase L: {cfg.name} train_4k at its published widths (d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}, "
+          f"seq {L_SEQ}); cut: {CONFIG.n_layers} -> {L_LAYERS} layers, batch "
+          f"256 -> {L_BATCH}; reckoned {need['total'] / 1e9:.2f} GB; {smi}",
+          flush=True)
+    model = init_lm_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    reset_launches()
+    r = _lm_train(model, L_BATCH, L_SEQ, L_STEPS)
+    n = launch_counts()
+    check(not any(n.values()) and r["launches"] == 0,
+          f"train steps launch no kernel ({n}): training attends through "
+          f"chunked_attention")
+    check(r["finite"], f"{L_STEPS} steps: every loss, m and v finite")
+    check(r["losses"][-1] < r["losses"][0],
+          f"the loss falls: {r['losses'][0]:.6f} -> {r['losses'][-1]:.6f} "
+          f"(step 1 beside ln {cfg.vocab} = {math.log(cfg.vocab):.3f})")
+    for i, (w, tps, tf) in enumerate(zip(r["walls_s"], r["tokens_per_s"],
+                                         r["tflops"])):
+        print(f"  step {i + 1}: loss {r['losses'][i]:.6f}, wall {w:.4f} s, "
+              f"{tps:.1f} tokens/s, {tf:.2f} TFLOP/s", flush=True)
+    print(f"  peak device {r['peak_gb']:.2f} GB (reckoned "
+          f"{need['total'] / 1e9:.2f}: " + ", ".join(
+              f"{k} {v / 1e9:.2f}" for k, v in need.items() if k != "total")
+          + ")", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_l_remat(dev) -> None:
+    """Remat on and off at Phi-3's widths, ``L_REMAT_LAYERS`` layers,
+    batch 1 of ``L_SEQ`` tokens, the same weights: the loss and every
+    gradient bitwise; then
+    the checkpointed ``chunked_attention``'s q, k, v gradients against a
+    plain autograd pass in float32 at one Phi-3 layer's attention."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.phi3_medium_14b import CONFIG
+    from repro_torch.models.lm.attention import chunked_attention
+    from repro_torch.models.lm.transformer import (
+        init_lm_params, lm_value_and_grad,
+    )
+
+    cfg = dataclasses.replace(CONFIG, n_layers=L_REMAT_LAYERS)
+    model = init_lm_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, L_SEQ)).astype(np.int32)).to(dev)
+    out = {}
+    for remat in (True, False):
+        model.cfg = dataclasses.replace(cfg, remat=remat)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out[remat] = lm_value_and_grad(model, toks)
+        torch.cuda.synchronize()
+        print(f"  remat {remat}: {time.perf_counter() - t0:.3f} s, peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB",
+              flush=True)
+    model.cfg = cfg
+    (a, ga), (b, gb) = out[True], out[False]
+    check(torch.equal(a[0], b[0]),
+          f"{L_REMAT_LAYERS} layers, batch 1 x {L_SEQ}: remat on == off "
+          f"loss bitwise ({float(a[0]):.6f})")
+    differ = sorted(k for k in ga if not torch.equal(ga[k], gb[k]))
+    check(not differ, f"remat on == off: all {len(ga)} gradients bitwise "
+          f"(differ: {differ})")
+    del model, out, ga, gb
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(dev).manual_seed(1)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    q, k, v = randn(1, L_SEQ, H, D), randn(1, L_SEQ, Hkv, D), \
+        randn(1, L_SEQ, Hkv, D)
+    w = randn(1, L_SEQ, H, D)
+    grads = {}
+    for ck in (True, False):
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = chunked_attention(*qkv, q_chunk=cfg.q_chunk,
+                              kv_chunk=cfg.kv_chunk, kv_checkpoint=ck)
+        grads[ck] = torch.autograd.grad((o * w).sum(), qkv)
+    errs = [t_rel_err(p, c) for p, c in zip(grads[False], grads[True])]
+    check(max(errs) <= L_ATTN_TOL,
+          f"checkpointed chunked_attention (q {tuple(q.shape)}, float32): "
+          f"q, k, v gradients within {L_ATTN_TOL} max-relative of plain "
+          f"autograd's ({', '.join(f'{e:.3e}' for e in errs)})")
+    del grads, q, k, v, w
+    torch.cuda.empty_cache()
+
+
+def phase_l_card_vs_cpu(dev) -> None:
+    """Each dense id's ``SMOKE``: ``lm_loss`` and its gradients, then one
+    in-place AdamW step, on the card and on the CPU from the same weights
+    and tokens, within ``L_CPU_TOL`` max-relative."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models.lm.steps import make_train_step
+    from repro_torch.models.lm.transformer import (
+        init_lm_params, lm_value_and_grad,
+    )
+    from repro_torch.optim import adamw_init
+
+    cpu = torch.device("cpu")
+    for name, arch in REGISTRY.items():
+        if arch.family != "lm":
+            continue
+        cfg = arch.smoke_config
+        toks = np.random.default_rng(0).integers(
+            0, cfg.vocab, (2, 64)).astype(np.int32)
+        res = []                         # the card's, then the CPU's
+        for d in (dev, cpu):
+            model = init_lm_params(cfg, torch.Generator(cpu).manual_seed(0),
+                                   cpu).to(d)
+            t = torch.from_numpy(toks).to(d)
+            (loss, _), grads = lm_value_and_grad(model, t)
+            opt = adamw_init(model)
+            step = make_train_step(cfg, device=d)[0]
+            step(model, opt, t)
+            res.append(dict(
+                loss=loss.reshape(1), **{f"g.{k}": v for k, v in grads.items()},
+                **{f"p.{k}": v for k, v in model.named_parameters()},
+                **{f"m.{k}": v for k, v in opt["m"].items()},
+                **{f"v.{k}": v for k, v in opt["v"].items()}))
+        card, host = res
+        errs = {k: t_rel_err(host[k], card[k].cpu()) for k in host}
+        worst = max(errs, key=errs.get)
+        n_grads = sum(k.startswith("g.") for k in host)
+        check(errs[worst] <= L_CPU_TOL,
+              f"{name} SMOKE: card vs CPU loss, {n_grads} gradients, "
+              f"parameters, m and v after one step within {L_CPU_TOL} "
+              f"max-relative (worst {worst} {errs[worst]:.3e}, loss "
+              f"{errs['loss']:.3e})")
+
+
+def phase_l_flash(dev) -> dict:
+    """``command-r-plus-104b`` (96 / 8 heads: groups of 12) and
+    ``deepseek-67b`` (64 / 8: groups of 8) at ``CONFIG`` widths,
+    ``L_FLASH_LAYERS`` layers: a ``CHECK_SEQ``-token prefill at batch 1
+    in kernel and reference modes, last logits within ``LM_KERNEL_TOL``,
+    exactly ``L_FLASH_LAYERS`` ``flash_attention`` launches in kernel
+    mode. Then the wrapper itself at each id's prefill shape (q ``(1,
+    CHECK_SEQ, Hq, d_head)``, k / v ``(1, CHECK_SEQ, Hkv, d_head)``, bf16)
+    against the plain version, as phase A holds it (:func:`flash_vs_plain`;
+    those launches compare, and are not counted). Returns each kernel's
+    launches in the prefills."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.lm.steps import make_prefill_step
+    from repro_torch.models.lm.transformer import init_lm_params
+
+    counts = dict(NO_LAUNCHES)
+    for name in ("command-r-plus-104b", "deepseek-67b"):
+        cfg = dataclasses.replace(REGISTRY[name].config,
+                                  n_layers=L_FLASH_LAYERS)
+        model = init_lm_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (1, CHECK_SEQ)).astype(np.int32)).to(dev)
+        logits = {}
+        for mode in ("kernel", "reference"):
+            reset_launches()
+            logits[mode] = make_prefill_step(cfg, mode, dev)(model, toks)
+            torch.cuda.synchronize()
+            n = launch_counts()
+            want = L_FLASH_LAYERS if mode == "kernel" else 0
+            check(n == dict(NO_LAUNCHES, flash_attention=want),
+                  f"{name} prefill {mode}: launches {n} == {want} "
+                  f"flash_attention")
+            for k, v in n.items():
+                counts[k] += v
+        err = rel_err(logits["reference"].cpu().numpy(),
+                      logits["kernel"].cpu().numpy())
+        check(bool(torch.isfinite(logits["kernel"]).all())
+              and err <= LM_KERNEL_TOL,
+              f"{name} ({cfg.n_heads}/{cfg.n_kv_heads} heads, groups of "
+              f"{cfg.n_heads // cfg.n_kv_heads}), {L_FLASH_LAYERS} layers, "
+              f"{CHECK_SEQ} tokens: kernel's last logits within "
+              f"{LM_KERNEL_TOL} max-relative of reference's ({err:.3e})")
+        del model, logits, toks
+        torch.cuda.empty_cache()
+        q, k, v = flash_inputs(1, CHECK_SEQ, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.d_head, dev)
+        err = flash_vs_plain(q, k, v)[2]
+        print(f"  {name}: flash_attention at q {tuple(q.shape)}, k/v "
+              f"{tuple(k.shape)} against plain: max abs err {err:.3e}",
+              flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_l(smi: str, dev) -> dict:
+    """Phase L: dense-LM training on the card. The three dense LM ids'
+    ``smoke()`` run in phase K's registry pass with every other id.
+    Returns each kernel's launches over its runs."""
+    for part in (lambda: phase_l_train(smi, dev), lambda: phase_l_remat(dev),
+                 lambda: phase_l_card_vs_cpu(dev)):
+        t0 = time.perf_counter()
+        part()
+        print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    counts = phase_l_flash(dev)
+    print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return counts
+
+
 # ----------------------------------------------------------------- phase K
 # the CAGNET step at ogb_products: steps, and step 1's loss against the
 # port's full_graph_loss (relative)
@@ -3041,6 +3342,9 @@ def main() -> int:
     lm = phase_i(dev)
     print(f"phase I: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    lm_train = phase_l(smi, dev)
+    print(f"phase L: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     registry = phase_k(smi, dev)
     print(f"phase K: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"all phases: {time.perf_counter() - t_all:.1f} s", flush=True)
@@ -3049,13 +3353,15 @@ def main() -> int:
     for name, r in results.items():
         # each kernel's launches over the serving, GCN training, GAT
         # training, other families' training, phase J's runs, two-tower
-        # serving and training, LM serving, phase K's registry smokes and
-        # bsr_spmm aggregate paths, every count read right after its runs
+        # serving and training, LM serving, phase L's prefills at the other
+        # dense ids' widths, phase K's registry smokes and bsr_spmm
+        # aggregate paths, every count read right after its runs
         n = sum(serving[m][name] + training[m][name] for m in MODES)
         n += sum(counts[name] for counts in gat.values())
         n += sum(counts[name] for counts in families.values())
         n += baseline[name]
         n += tt_serving[name] + tt_training[name] + lm["launches"][name]
+        n += lm_train[name]
         n += registry[name]
         n += bsr_launches if name == "bsr_spmm" else 0
         kernels.append(dict(

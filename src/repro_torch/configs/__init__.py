@@ -2,13 +2,12 @@
 (the reference's ``configs/``).
 
 The registry holds the arch ids whose families are ported, in the
-reference's order: ``graphsage-reddit``, ``pna``, ``graphcast``,
-``gcn-cora``, ``two-tower-retrieval`` and the paper's own ``gcn-igbm-3l``.
-The five LM ids (``mixtral-8x7b``, ``deepseek-v2-236b``,
-``phi3-medium-14b``, ``command-r-plus-104b``, ``deepseek-67b``) join it
-with ``make_lm_arch``, which comes with LM training; until then
-``phi3_medium_14b`` holds the Phi-3 configuration the LM serving paths
-run. ``base`` holds the shapes and FLOP counts.
+reference's order: the dense LMs ``phi3-medium-14b``,
+``command-r-plus-104b`` and ``deepseek-67b``, then ``graphsage-reddit``,
+``pna``, ``graphcast``, ``gcn-cora``, ``two-tower-retrieval`` and the
+paper's own ``gcn-igbm-3l``. ``mixtral-8x7b`` (MoE) and
+``deepseek-v2-236b`` (MoE and MLA) join with their slices of the port.
+``base`` holds the shapes and FLOP counts.
 """
 from __future__ import annotations
 
@@ -21,6 +20,9 @@ from repro_torch.configs.base import (
 )
 
 _MODULES = [
+    "phi3_medium_14b",
+    "command_r_plus_104b",
+    "deepseek_67b",
     "graphsage_reddit",
     "pna",
     "graphcast",
@@ -30,6 +32,7 @@ _MODULES = [
 ]
 
 ASSIGNED = [
+    "phi3-medium-14b", "command-r-plus-104b", "deepseek-67b",
     "graphsage-reddit", "pna", "graphcast", "gcn-cora",
     "two-tower-retrieval",
 ]

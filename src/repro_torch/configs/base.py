@@ -9,7 +9,10 @@ one ``torch.distributed.tensor`` placement tuple per argument (over the
 mesh's ``("data", "model")`` dims) and ``meta`` (``model_flops``, the
 analytic model FLOPs of one call, ``kind`` and, for GNNs, ``dims``). The
 step takes each argument's local shard on its rank: the part of the
-argument's global shape that its placements give the rank.
+argument's global shape that its placements give the rank. Where the
+reference sets them, ``out_shardings`` gives the outputs that keep an
+input's placements through the step (an LM train step's parameters and
+optimizer state, a decode step's cache), None for the others.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ class Built:
     args: Tuple
     in_shardings: Tuple
     meta: Dict[str, Any]
+    out_shardings: Any = None      # outputs that keep an input's placements
 
 
 @dataclasses.dataclass
@@ -36,10 +40,11 @@ class ArchSpec:
     """An architecture of the registry. ``smoke(device=None)`` runs its
     reduced configuration once (the CUDA card unless ``device="cpu"``) and
     returns ``loss``, ``grad_norm`` and ``finite``; ``config`` is the
-    family's configuration (a ``GNNArch``, whose ``model`` names the GNN
-    family, or a ``TwoTowerConfig``). ``layer_calib`` is the reference's
-    (L1, L2, L_full) depth calibration of scanned-layer archs, None for
-    the others."""
+    family's configuration (an ``LMConfig``, a ``GNNArch``, whose
+    ``model`` names the GNN family, or a ``TwoTowerConfig``) and
+    ``smoke_config`` the reduced one an LM's ``smoke`` runs at.
+    ``layer_calib`` is the reference's (L1, L2, L_full) depth calibration
+    of scanned-layer archs, None for the others."""
 
     name: str
     family: str                    # lm | gnn | recsys
@@ -49,6 +54,7 @@ class ArchSpec:
     smoke: Callable[..., Dict[str, Any]]
     layer_calib: Optional[Tuple[int, int, int]] = None
     config: Any = None
+    smoke_config: Any = None
 
     def runnable_shapes(self) -> List[str]:
         return [s for s, c in self.cells.items() if c.skip is None]

@@ -1,6 +1,6 @@
 """Family-level ``ArchSpec`` builders (the reference's
-``configs/builders.py``): GNN and recsys. ``make_lm_arch`` comes with LM
-training (its build needs the LM train step and inputs).
+``configs/builders.py``): LM (dense GQA; MoE and MLA configs are refused
+by ``LMConfig`` until their slices), GNN and recsys.
 
 A build takes the cell's shape name and a ``("data", "model")``
 :class:`~torch.distributed.device_mesh.DeviceMesh`
@@ -17,15 +17,20 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import (
-    ArchSpec, Built, Cell, GNN_SHAPES, RECSYS_SHAPES, gnn_model_flops,
-    mfg_hop_sizes, recsys_model_flops,
+    ArchSpec, Built, Cell, GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES,
+    gnn_model_flops, lm_attention_correction, lm_model_flops, mfg_hop_sizes,
+    recsys_model_flops,
 )
 from repro_torch.distributed import gnn_parallel as gp
 from repro_torch.launch.mesh import axis_size, data_axes
 from repro_torch.models.gnn.layers import get_gnn
+from repro_torch.models.lm import steps as lm_steps
+from repro_torch.models.lm.sharding import (
+    batch_spec, best_spec, placements, replicated,
+)
+from repro_torch.models.lm.transformer import LMConfig
 from repro_torch.models.recsys.two_tower import (
     TwoTower, TwoTowerConfig, score_candidates, serve_user_tower,
     two_tower_value_and_grad,
@@ -33,48 +38,85 @@ from repro_torch.models.recsys.two_tower import (
 from repro_torch.optim.adamw import adamw_init, adamw_update
 
 
-def _replicated(mesh):
-    return tuple(Replicate() for _ in mesh.mesh_dim_names)
+# --------------------------------------------------------------------------
+# LM
+# --------------------------------------------------------------------------
+
+LM_LONG_SKIP = ("full-attention arch: long_500k requires sub-quadratic "
+                "attention (DESIGN.md §4)")
 
 
-def _spec_placements(mesh, spec):
-    """Placements over the mesh's dims of a per-tensor-dim axis
-    assignment (``spec[i]``: the mesh dim name, or names, tensor dim ``i``
-    is split over, or None)."""
-    out = []
-    for a in mesh.mesh_dim_names:
-        dims = [i for i, s in enumerate(spec)
-                if s == a or (isinstance(s, tuple) and a in s)]
-        out.append(Shard(dims[0]) if dims else Replicate())
-    return tuple(out)
+def make_lm_arch(cfg: LMConfig, describe: str,
+                 smoke_cfg: LMConfig) -> ArchSpec:
+    # long_500k needs a sliding window
+    cells = {shape: Cell(kind=s["kind"], skip=(
+        LM_LONG_SKIP if shape == "long_500k" and not cfg.sub_quadratic
+        else None)) for shape, s in LM_SHAPES.items()}
 
+    def build(shape: str, mesh, n_layers: Optional[int] = None,
+              unroll: bool = False, variant: Optional[str] = None) -> Built:
+        """The cell's step at ``cfg`` (``n_layers`` cuts its depth;
+        ``unroll`` sets ``unroll_layers``, which the port's layer loop
+        does not need; LM variants are chosen by environment flags, as in
+        the reference). The step runs on the mesh's device type."""
+        c = cfg
+        if n_layers is not None or unroll:
+            c = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
+                                    unroll_layers=unroll)
+        s = LM_SHAPES[shape]
+        kind, batch, seq = s["kind"], s["batch"], s["seq"]
+        device = mesh.device_type
+        out_sh = None
+        if kind == "train":
+            fn = lm_steps.make_train_step(c, mesh, device=device)[0]
+            args, shard = lm_steps.lm_train_inputs(c, batch, seq, mesh)
+            # parameters and optimizer state keep their placements
+            out_sh = (shard[0], shard[1], None)
+        elif kind == "prefill":
+            fn = lm_steps.make_prefill_step(c, device=device)
+            args, shard = lm_steps.lm_prefill_inputs(c, batch, seq, mesh)
+        else:
+            fn = lm_steps.make_decode_step(c, device=device)
+            args, shard = lm_steps.lm_decode_inputs(c, batch, seq, mesh)
+            out_sh = (None, shard[1])       # the cache keeps its placements
+        corr = lm_attention_correction(c, kind, batch, seq)
+        meta = dict(
+            model_flops=lm_model_flops(c, kind, batch, seq) + corr["flops"],
+            attn_corr_flops=corr["flops"],
+            attn_corr_bytes=corr["bytes"],
+            params=c.param_count(),
+            active_params=c.active_param_count(),
+            kind=kind,
+        )
+        return Built(fn, args, shard, meta, out_shardings=out_sh)
 
-def best_spec(shape, mesh, axes=("model", "data")):
-    """Assign mesh dims to tensor dims, largest divisible dim first (the
-    reference's rule for a parameter without a named layout)."""
-    sizes = {a: mesh.size(i) for i, a in enumerate(mesh.mesh_dim_names)}
-    assign = {}
-    order = sorted(range(len(shape)), key=lambda i: -shape[i])
-    for ax in axes:
-        if ax not in sizes:
-            continue
-        n = sizes[ax]
-        for i in order:
-            if i not in assign and shape[i] % n == 0 and shape[i] >= n:
-                assign[i] = ax
-                break
-    return tuple(assign.get(i) for i in range(len(shape)))
+    def smoke(device=None) -> dict:
+        """``lm_loss`` and its gradients at ``smoke_cfg`` on ``device``
+        (the CUDA card unless ``device="cpu"``): weights from
+        ``torch.Generator`` seed 0, tokens ``(2, 32)`` uniform from numpy
+        seed 1. Returns ``loss``, ``grad_norm`` (the sum of every
+        gradient's absolute values) and ``finite`` (loss and
+        ``grad_norm``)."""
+        from repro_torch.device import resolve_device
+        from repro_torch.models.lm.transformer import (
+            init_lm_params, lm_value_and_grad,
+        )
 
+        device = resolve_device(device)
+        model = init_lm_params(smoke_cfg,
+                               torch.Generator(device).manual_seed(0), device)
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, smoke_cfg.vocab, (2, 32)).astype(np.int32)).to(device)
+        (loss, _), grads = lm_value_and_grad(model, toks)
+        gn = float(sum(float(g.abs().sum()) for g in grads.values()))
+        return dict(loss=float(loss), grad_norm=gn,
+                    finite=bool(np.isfinite(float(loss)) and np.isfinite(gn)))
 
-def batch_spec(batch: int, mesh):
-    """The data dims a batch of ``batch`` rows splits over: all of them
-    where ``batch`` divides, else the longest prefix that does, else none
-    (the reference's ``batch_spec``)."""
-    axes = data_axes(mesh)
-    for k in range(len(axes), 0, -1):
-        if batch % axis_size(mesh, axes[:k]) == 0:
-            return (axes[:k],)
-    return (None,)
+    # dense configs: (2, 4, L) (the reference's MoE first-dense offset
+    # waits for MoE)
+    return ArchSpec(cfg.name, "lm", describe, cells, build, smoke,
+                    layer_calib=(2, 4, cfg.n_layers), config=cfg,
+                    smoke_config=smoke_cfg)
 
 
 # --------------------------------------------------------------------------
@@ -114,7 +156,7 @@ def make_gnn_arch(a: GNNArch, describe: str) -> ArchSpec:
         d_out = dims[-1]
         p_abs = _abstract_gnn_params(a, dims)
         o_abs = adamw_init(p_abs)
-        rep = _replicated(mesh)
+        rep = replicated(mesh)
         oshard = {"m": rep, "v": rep, "step": rep}
         group = mesh.get_group("data")
 
@@ -254,10 +296,10 @@ def make_recsys_arch(cfg: TwoTowerConfig, describe: str,
         s = RECSYS_SHAPES[shape]
         batch = s["batch"]
         p_abs = _abstract_two_tower(cfg)
-        pshard = {k: (_replicated(mesh) if v.dim() <= 1
-                      else _spec_placements(mesh, best_spec(v.shape, mesh)))
+        pshard = {k: (replicated(mesh) if v.dim() <= 1
+                      else placements(mesh, best_spec(v.shape, mesh)))
                   for k, v in p_abs.state_dict(keep_vars=True).items()}
-        bsh = _spec_placements(mesh, batch_spec(batch, mesh))
+        bsh = placements(mesh, batch_spec(batch, mesh))
 
         def ids(n_fields):
             return torch.empty((batch, n_fields, cfg.bag_size),
@@ -266,7 +308,7 @@ def make_recsys_arch(cfg: TwoTowerConfig, describe: str,
         uids = ids(cfg.n_user_fields)
         if s["kind"] == "train":
             o_abs = adamw_init(p_abs)
-            oshard = {"m": pshard, "v": pshard, "step": _replicated(mesh)}
+            oshard = {"m": pshard, "v": pshard, "step": replicated(mesh)}
 
             def fn(params, opt_state, u, i):
                 (loss, _), grads = two_tower_value_and_grad(params, u, i, cfg)
@@ -292,8 +334,8 @@ def make_recsys_arch(cfg: TwoTowerConfig, describe: str,
                 return score_candidates(params, u, c, cfg, top_k=128)
 
             args = (p_abs, uids, cand)
-            shard = (pshard, _replicated(mesh),
-                     _spec_placements(mesh, (data_axes(mesh), None)))
+            shard = (pshard, replicated(mesh),
+                     placements(mesh, (data_axes(mesh), None)))
             flops = recsys_model_flops(cfg, "retrieval", batch, nc)
         meta = dict(model_flops=flops, kind=s["kind"])
         return Built(fn, args, shard, meta)

@@ -6,6 +6,7 @@ vocab=100352 — RoPE SwiGLU GQA. [arXiv:2404.14219; unverified]
 d_model 64, float32, attention chunks of 16)."""
 import torch
 
+from repro_torch.configs.builders import make_lm_arch
 from repro_torch.models.lm.transformer import LMConfig
 
 CONFIG = LMConfig(
@@ -20,3 +21,5 @@ SMOKE = LMConfig(
     n_layers=2, d_model=64, n_heads=8, n_kv_heads=2, d_head=8, d_ff=128,
     vocab=256, attn_type="gqa", dtype=torch.float32, q_chunk=16, kv_chunk=16,
 )
+
+ARCH = make_lm_arch(CONFIG, __doc__.split("\n\n", 1)[0].strip(), SMOKE)

@@ -7,6 +7,12 @@ runs :func:`~repro_torch.kernels.flash_attention.ref.flash_attention_ref` —
 the only reason it ever does. There is no fallback from a CUDA tensor to
 the plain version.
 
+The kernel is forward-only, as the Pallas kernel is: with grad mode on and
+any of q, k, v requiring grad, :func:`flash_attention` raises on every
+device (the raw launch's output would carry no ``grad_fn``, so no gradient
+would reach q, k or v). Training attends through the plain
+``chunked_attention``, the reference's own training path.
+
 The reference wrapper (``src/repro/kernels/flash_attention/ops.py``)
 flattened the heads into ``B * Hq`` rows, repeated each KV head ``G`` times
 and cut ``S`` into blocks of 128; this one passes q, k and v in their own
@@ -96,7 +102,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bfloat16, the same for all three). Positions start at 0 for q and k.
     ``Sq`` and ``Skv`` are any lengths; ``D <= 128`` on the card. Shapes
     that leave a query row with no unmasked key (a window that ends before
-    the last key it could reach) are refused on every device."""
+    the last key it could reach) are refused on every device, and so are
+    inputs that require grad while grad mode is on (the kernel has no
+    backward)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention is forward-only: q, k or v requires grad with "
+            "grad mode on, and the kernel's output would carry no gradient; "
+            "run it under torch.no_grad() or train through "
+            "chunked_attention")
     _check_shapes(q, k, v, window)
     dev = q.device
     for name, t in (("k", k), ("v", v)):

@@ -21,23 +21,31 @@ the CUDA card — a serial and a pipelined run, each of ``epochs`` epochs
 the losses and gradients are finite and that the pipelined run equals the
 serial one bitwise.
 
-``--arch phi3-medium-14b --shape prefill_32k|decode_32k`` (not yet in the
-registry: it joins with ``make_lm_arch``) runs that cell's serving step on
-the card at ``CONFIG`` widths, weights from ``torch.Generator`` seed 0 and
-tokens from numpy seed 0 (:func:`_lm_prefill`, :func:`_lm_decode`).
-``--batch``, ``--seq`` and ``--layers`` cut the cell, ``--kernels`` routes
-the prefill's attention; ``--smoke`` runs at the ``SMOKE`` widths (batch
-2, 64 tokens by default) and takes ``--device cpu``. It prints wall,
-tokens/s, achieved TFLOP/s (``lm_model_flops`` plus
-``lm_attention_correction``) and peak device GB. ``train_4k``, and
-``--smoke`` without a serving shape (the reference's ``--smoke`` is a loss
-and its gradients), exit 2: LM training comes with its slice.
+An LM id (``phi3-medium-14b``, ``command-r-plus-104b``, ``deepseek-67b``)
+with ``--smoke`` and no ``--shape`` runs its ``ArchSpec.smoke()``
+(``lm_loss`` and its gradients at ``SMOKE``). With ``--shape`` it runs
+that cell at ``CONFIG`` widths on the card, weights from
+``torch.Generator`` seed 0 and tokens from numpy seed 0:
+``prefill_32k`` / ``decode_32k`` the serving steps (:func:`_lm_prefill`,
+:func:`_lm_decode`; ``--kernels`` routes the prefill's attention),
+``train_4k`` ``--steps`` train steps of ``make_train_step`` on one batch
+(:func:`_lm_train`). ``--batch`` and ``--layers`` cut a cell, and
+``--seq`` a serving cell, or ``train_4k`` with ``--smoke``; ``--smoke``
+runs at the ``SMOKE`` widths (batch 2, 64 tokens by default) and takes
+``--device cpu``. Each prints wall, tokens/s, achieved TFLOP/s
+(``lm_model_flops`` plus ``lm_attention_correction``) and peak device GB
+(a train step each step, with its loss). A cell run with no cut of
+depth or batch whose reckoned bytes (:func:`lm_cell_bytes`) exceed the
+device's memory is refused before anything is allocated, with the
+reckoning; a cut cell runs as asked (the reckoning is an upper one).
 ``long_500k`` is skipped for a full-attention arch, with the reference's
 reason.
 
-Exit status 0 iff every check passes (or the cell is skipped); 2 for an
-unknown arch, ``--offload`` on a non-GNN arch, ``two-tower-retrieval``
-without ``--smoke``, a full configuration (the dry run) and LM training.
+Exit status 0 iff every check passes (or the cell is skipped); 1 when a
+check fails or an uncut LM cell cannot fit; 2 for an unknown arch,
+``--offload`` on a non-GNN arch, ``two-tower-retrieval`` without
+``--smoke``, a GNN arch's full configuration (the dry run) and an LM id
+without a shape or ``--smoke``.
 
 With ``--offload``, ``--telemetry-port PORT`` serves live Prometheus
 metrics (``GET /metrics``, :class:`~repro_torch.obs.live.TelemetryServer`;
@@ -71,24 +79,14 @@ def _recsys_smoke(device=None) -> dict:
     return REGISTRY["two-tower-retrieval"].smoke(device=device)
 
 
-# LM arch ids -> their configuration module (``CONFIG``, ``SMOKE``)
-LM_ARCHS = {"phi3-medium-14b": "repro_torch.configs.phi3_medium_14b"}
-LM_TRAINING = "LM training comes with its slice of the port"
 # the prefill's warm-up length and the decode steps after the filled cache
 LM_WARMUP_SEQ = 1024
 LM_DECODE_STEPS = 32
-# --smoke's default cut of a serving cell
+# --smoke's default cut of an LM cell
 LM_SMOKE_BATCH = 2
 LM_SMOKE_SEQ = 64
-
-
-def lm_cell_skip(cfg, shape: str) -> Optional[str]:
-    """Why a cell does not run for ``cfg`` (the reference's
-    ``make_lm_arch`` rule), or None."""
-    if shape == "long_500k" and not cfg.sub_quadratic:
-        return ("full-attention arch: long_500k requires sub-quadratic "
-                "attention (DESIGN.md §4)")
-    return None
+# train_4k's steps on one batch
+LM_TRAIN_STEPS = 3
 
 
 def _peak_gb(dev) -> float:
@@ -257,10 +255,108 @@ def _lm_decode(model, batch: int, seq: int, steps: int = LM_DECODE_STEPS,
     return out
 
 
-def _lm_main(args) -> int:
+def lm_cell_bytes(cfg, kind: str, batch: int, seq: int) -> dict:
+    """The device bytes an LM cell's step at ``cfg`` holds at its peak, by
+    term. Every kind holds the parameters in ``cfg.dtype``. A train step
+    adds their gradients, AdamW's float32 ``m`` and ``v``, four float32
+    ``(batch, seq, vocab)`` tensors at the loss (the logits, their
+    ``log_softmax`` and the two gradients), the head's float32 copy and its
+    gradient, and each layer's saved input (per-layer remat); a layer's own
+    activations, one layer's at a time under remat, are left out. A
+    prefill adds one layer's working set, ``batch * seq * (4 d_model + 3
+    d_ff)`` elements; a decode step the K and V caches of every layer and
+    one layer's float32 copy of them. The reckoning is an upper one: at
+    Phi-3-medium's widths, 4 layers and batch 2 of 4,096 tokens, a train
+    step reckons 46.29 GB and peaked at 36.90 GB on an H100 (PERF.md §4),
+    so the launcher refuses on it only a cell run with no cut."""
+    item = cfg.dtype.itemsize
+    n = cfg.param_count() + cfg.d_model          # + the final norm
+    out = dict(params=n * item)
+    if kind == "train":
+        out.update(
+            grads=n * item, adamw=8 * n,
+            logits=4 * 4 * batch * seq * cfg.vocab,
+            head=2 * 4 * cfg.d_model * cfg.vocab,
+            layer_inputs=cfg.n_layers * batch * seq * cfg.d_model * item)
+    elif kind == "prefill":
+        out["layer"] = batch * seq * (4 * cfg.d_model + 3 * cfg.d_ff) * item
+    else:
+        kv = 2 * batch * seq * cfg.n_kv_heads * cfg.d_head
+        out.update(cache=cfg.n_layers * kv * item, cache_f32=4 * kv)
+    out["total"] = sum(out.values())
+    return out
+
+
+def _device_bytes(dev) -> int:
+    """The device's memory: the card's total, or the host's physical
+    memory for the CPU."""
+    import os
+
+    import torch
+
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def _lm_train(model, batch: int, seq: int, steps: int = LM_TRAIN_STEPS,
+              seed: int = 0, profile: bool = False) -> dict:
+    """``steps`` calls of ``make_train_step`` (lr 1e-4, AdamW in place)
+    on ``model``'s device on one batch: tokens ``(batch, seq)`` uniform
+    from numpy ``seed``. Returns each step's loss, wall (host clock,
+    ending in a synchronise), tokens/s and achieved TFLOP/s
+    (``lm_model_flops`` + ``lm_attention_correction``, remat's recompute
+    not counted), the peak device GB since the optimizer state was made
+    (it included), the steps' ``flash_attention`` launches, and
+    ``finite``: every loss, and every ``m`` and ``v`` leaf after each step
+    (a non-finite gradient makes them so); with ``profile``, one more step
+    under :func:`_profiled` (``profile``)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import (
+        lm_attention_correction, lm_model_flops,
+    )
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.lm.steps import make_train_step
+    from repro_torch.optim import adamw_init
+
+    cfg, dev = model.cfg, model.device
+    step = make_train_step(cfg, device=dev)[0]
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (batch, seq)).astype(np.int32)).to(dev)
+    opt = adamw_init(model)
+    flops = (lm_model_flops(cfg, "train", batch, seq)
+             + lm_attention_correction(cfg, "train", batch, seq)["flops"])
+    _reset_peak(dev)
+    before = launch_counts()["flash_attention"]
+    losses, walls, finite = [], [], True
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        model, opt, metrics = step(model, opt, toks)
+        loss = float(metrics["loss"])
+        _sync(dev)
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss)
+        finite &= bool(np.isfinite(loss)) and all(
+            bool(torch.isfinite(t).all())
+            for k in ("m", "v") for t in opt[k].values())
+    out = dict(
+        batch=batch, seq=seq, steps=steps, losses=losses, walls_s=walls,
+        tokens_per_s=[batch * seq / w for w in walls],
+        tflops=[flops / w / 1e12 for w in walls], peak_gb=_peak_gb(dev),
+        launches=launch_counts()["flash_attention"] - before, finite=finite,
+    )
+    if profile:
+        out["profile"] = _profiled(lambda: step(model, opt, toks), dev)
+    return out
+
+
+def _lm_main(args, arch) -> int:
     """The LM branch of :func:`main`; returns the exit status."""
     import dataclasses
-    import importlib
 
     import torch
 
@@ -272,35 +368,68 @@ def _lm_main(args) -> int:
         print(f"{args.arch}: --offload requires a GNN arch")
         return 2
     if args.shape is None:
-        what = ("--smoke without --shape is the reference's loss and "
-                "gradients" if args.smoke else "no --shape given")
-        print(f"{args.arch}: {what}; {LM_TRAINING} (serving: --shape "
-              f"prefill_32k or decode_32k)")
+        if args.smoke:
+            r = arch.smoke(device=args.device)
+            print(f"{args.arch} smoke: {r}")
+            return 0 if r["finite"] and r["grad_norm"] > 0 else 1
+        print(f"{args.arch}: no --shape given (train_4k, prefill_32k or "
+              f"decode_32k), and no --smoke")
         return 2
     if args.shape not in LM_SHAPES:
         print(f"{args.arch}: unknown shape {args.shape!r} "
               f"(one of {sorted(LM_SHAPES)})")
         return 2
     cell = LM_SHAPES[args.shape]
-    if cell["kind"] == "train":
-        print(f"{args.arch} {args.shape}: {LM_TRAINING}")
-        return 2
-    mod = importlib.import_module(LM_ARCHS[args.arch])
-    cfg = mod.SMOKE if args.smoke else mod.CONFIG
-    skip = lm_cell_skip(cfg, args.shape)
+    skip = arch.cells[args.shape].skip
     if skip:
         print(f"{args.arch} {args.shape}: skipped: {skip}")
         return 0
+    train = cell["kind"] == "train"
+    if train and args.seq and not args.smoke:
+        print(f"{args.arch} {args.shape}: --seq cuts train_4k only with "
+              f"--smoke (the cell's sequence is its shape)")
+        return 2
+    cfg = arch.smoke_config if args.smoke else arch.config
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     batch = args.batch or (LM_SMOKE_BATCH if args.smoke else cell["batch"])
     seq = args.seq or (LM_SMOKE_SEQ if args.smoke else cell["seq"])
     dev = resolve_device(args.device)
+    need = lm_cell_bytes(cfg, cell["kind"], batch, seq)
+    have = _device_bytes(dev)
+    terms = ", ".join(f"{k} {v / 1e9:.2f}" for k, v in need.items()
+                      if k != "total")
+    if need["total"] > have:
+        if not (args.layers or args.batch):
+            print(f"{args.arch} {args.shape}: {cfg.n_layers} layers at batch "
+                  f"{batch} x {seq} tokens need {need['total'] / 1e9:.2f} GB "
+                  f"({terms} GB), more than the {have / 1e9:.2f} GB of "
+                  f"{dev}; cut it with --layers / --batch")
+            return 1
+        print(f"{args.arch} {args.shape}: the cut cell reckons "
+              f"{need['total'] / 1e9:.2f} GB ({terms} GB), more than the "
+              f"{have / 1e9:.2f} GB of {dev}; the reckoning is an upper "
+              f"one, so it runs as asked", flush=True)
     model = init_lm_params(cfg, torch.Generator(dev).manual_seed(0), dev)
     print(f"{args.arch} {args.shape}: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.dtype}, batch {batch}, seq {seq}, kernels "
-          f"{args.kernels}, on {dev}", flush=True)
-    if cell["kind"] == "prefill":
+          f"{cfg.d_model}, {cfg.dtype}, batch {batch}, seq {seq}, "
+          + ("" if train else f"kernels {args.kernels}, ") + f"on {dev}",
+          flush=True)
+    if train:
+        r = _lm_train(model, batch, seq, args.steps, profile=args.profile)
+        for i, (loss, w, tps, tf) in enumerate(zip(
+                r["losses"], r["walls_s"], r["tokens_per_s"], r["tflops"])):
+            line = (f"  step {i + 1}: loss {loss:.6f}, wall {w:.3f} s, "
+                    f"{tps:.1f} tokens/s")
+            if dev.type == "cuda":
+                line += f", {tf:.3f} TFLOP/s"
+            print(line)
+        ok = r["finite"] and r["launches"] == 0
+        line = (f"  {r['steps']} steps: loss {r['losses'][0]:.6f} -> "
+                f"{r['losses'][-1]:.6f}")
+        tail = (f"flash_attention launches {r['launches']} (want 0), "
+                f"finite {r['finite']}")
+    elif cell["kind"] == "prefill":
         r = _lm_prefill(model, batch, seq, args.kernels,
                         warmup_seq=min(LM_WARMUP_SEQ, seq),
                         profile=args.profile)
@@ -320,8 +449,9 @@ def _lm_main(args) -> int:
         ok = r["finite"]
         tail = f"finite {r['finite']}"
     if dev.type == "cuda":
-        line += (f", {r['tflops']:.3f} TFLOP/s, peak device "
-                 f"{r['peak_gb']:.2f} GB")
+        if not train:
+            line += f", {r['tflops']:.3f} TFLOP/s"
+        line += f", peak device {r['peak_gb']:.2f} GB"
     print(f"{line}, {tail}")
     if args.profile:
         print(r["profile"])
@@ -555,8 +685,7 @@ def _train_smoke(
 def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
-                    help="an arch id of the registry (--list), or "
-                         "phi3-medium-14b")
+                    help="an arch id of the registry (--list)")
     ap.add_argument("--list", action="store_true",
                     help="print the registered archs and their cells")
     ap.add_argument("--offload", action="store_true",
@@ -579,23 +708,24 @@ def main(argv: Optional[Sequence[str]] = None):
                          "gradient (ArchSpec.smoke); with an LM --shape, "
                          "that cell at the LM's SMOKE widths")
     ap.add_argument("--shape", default=None,
-                    help="an LM cell: prefill_32k or decode_32k (train_4k "
-                         "waits for LM training; long_500k is skipped for "
-                         "full-attention archs)")
+                    help="an LM cell: train_4k, prefill_32k or decode_32k "
+                         "(long_500k is skipped for full-attention archs)")
     ap.add_argument("--batch", type=int, default=None,
                     help="LM cells: batch (default: the cell's)")
     ap.add_argument("--seq", type=int, default=None,
                     help="LM cells: sequence / cache length (default: the "
-                         "cell's)")
+                         "cell's; train_4k only with --smoke)")
+    ap.add_argument("--steps", type=int, default=LM_TRAIN_STEPS,
+                    help="train_4k: train steps on one batch")
     ap.add_argument("--layers", type=int, default=None,
                     help="LM cells: depth (default: the config's)")
     ap.add_argument("--kernels", default="kernel",
                     choices=("kernel", "reference"),
                     help="LM cells: the prefill's attention route")
     ap.add_argument("--profile", action="store_true",
-                    help="LM cells: one more prefill call / decode step "
-                         "under torch.profiler; prints the device's busy "
-                         "share and the top operators")
+                    help="LM cells: one more train step / prefill call / "
+                         "decode step under torch.profiler; prints the "
+                         "device's busy share and the top operators")
     ap.add_argument("--telemetry-port", type=int, default=None,
                     metavar="PORT",
                     help="serve live Prometheus metrics (GET /metrics) for "
@@ -623,15 +753,14 @@ def main(argv: Optional[Sequence[str]] = None):
         return
     if args.arch is None:
         ap.error("--arch is required (or --list)")
-    if args.arch in LM_ARCHS:
-        sys.exit(_lm_main(args))
     arch = REGISTRY.get(args.arch)
     if arch is None:
         gnn = sorted(n for n, a in REGISTRY.items() if a.family == "gnn")
         print(f"{args.arch}: not a registered arch; training requires a GNN "
-              f"arch (one of {gnn}), one of {sorted(REGISTRY)} or one of "
-              f"{sorted(LM_ARCHS)}")
+              f"arch (one of {gnn}) or one of {sorted(REGISTRY)}")
         sys.exit(2)
+    if arch.family == "lm":
+        sys.exit(_lm_main(args, arch))
     if arch.family == "recsys":
         if args.offload or not args.smoke:
             print(f"{args.arch}: only --smoke is ported for recsys archs "

@@ -1,7 +1,9 @@
 """GQA attention for the LM (the reference's ``models/lm/attention.py``,
 its dense part): the plain online-softmax :func:`chunked_attention`, the
 KV-cached :func:`decode_attention`, and :func:`attention`, the route
-between the ``flash_attention`` kernel and the plain version.
+between the ``flash_attention`` kernel and the plain version. Training
+attends through :func:`chunked_attention` (the reference's training path
+never reaches its Pallas kernel, and the port's kernel is forward-only).
 
 The MLA functions (DeepSeek-V2) come with that model's slice.
 """
@@ -11,6 +13,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -31,13 +34,39 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
     return m
 
 
+def _kv_step(qi: torch.Tensor, kj: torch.Tensor, vj: torch.Tensor,
+             m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+             qpos: torch.Tensor, kpos: torch.Tensor, scale: float,
+             causal: bool, window: Optional[int]):
+    """One KV chunk of the online softmax: the float32 (q_chunk,
+    kv_chunk) score block folded into the running max ``m``, sum ``l``
+    and output ``o``."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qi, kj.float()) * scale
+    s = s + _mask(qpos, kpos, causal, window)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(-1)
+    pv = torch.einsum("bhgqk,bkhd->bhgqd", p, vj.float())
+    return m_new, l_new, o * corr[..., None] + pv
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None,
                       q_chunk: int = 512, kv_chunk: int = 1024,
-                      q_offset: int = 0) -> torch.Tensor:
+                      q_offset: int = 0,
+                      kv_checkpoint: bool = True) -> torch.Tensor:
     """Online-softmax attention over (q_chunk, kv_chunk) blocks, float32
     scores and accumulators, every KV chunk visited for every q chunk (the
     reference's two scans as Python loops).
+
+    With grad mode on, each KV step runs under a non-reentrant
+    ``torch.utils.checkpoint`` (the reference's ``@jax.checkpoint``): the
+    backward recomputes each score block instead of keeping all of them
+    (at Phi-3's widths, batch 2 and 4,096 tokens, 32 blocks of 168 MB a
+    layer). ``kv_checkpoint=False`` keeps them, the plain autograd pass the
+    checkpointed one is held against; under ``torch.no_grad()`` neither
+    applies and the arithmetic is the same.
 
     q ``(B, Sq, Hq, D)``; k, v ``(B, Skv, Hkv, Dv)``; ``Hq % Hkv == 0``;
     ``Sq`` and ``Skv`` multiples of their (clipped) chunks. Returns
@@ -52,6 +81,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"q_chunk={q_chunk} / kv_chunk={kv_chunk}")
     scale = 1.0 / math.sqrt(D)
     dev = q.device
+    remat = kv_checkpoint and torch.is_grad_enabled()
     outs = []
     for q0 in range(0, Sq, q_chunk):
         qi = q[:, q0:q0 + q_chunk].reshape(B, q_chunk, Hkv, G, D).float()
@@ -63,17 +93,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         device=dev)
         for k0 in range(0, Skv, kv_chunk):
             kpos = k0 + torch.arange(kv_chunk, device=dev)
-            s = torch.einsum("bqhgd,bkhd->bhgqk", qi,
-                             k[:, k0:k0 + kv_chunk].float()) * scale
-            s = s + _mask(qpos, kpos, causal, window)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(-1)
-            pv = torch.einsum("bhgqk,bkhd->bhgqd", p,
-                              v[:, k0:k0 + kv_chunk].float())
-            o = o * corr[..., None] + pv
-            m = m_new
+            args = (qi, k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk],
+                    m, l, o, qpos, kpos, scale, causal, window)
+            # the step draws no random numbers: no RNG state to stash
+            m, l, o = (checkpoint(_kv_step, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+                       if remat else _kv_step(*args))
         out = o / torch.clamp(l, min=1e-30)[..., None]
         # (B, Hkv, G, qc, Dv) -> (B, qc, Hq, Dv)
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, Hq, Dv)
@@ -114,8 +139,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               kernels: str = "kernel") -> torch.Tensor:
     """The prefill's attention: ``kernels="kernel"`` calls the
     ``flash_attention`` kernel wrapper (the kernel on a CUDA tensor, its
-    plain version on a CPU tensor); ``"reference"`` calls
-    :func:`chunked_attention` (an explicit request, never a fallback)."""
+    plain version on a CPU tensor; it refuses inputs that require grad
+    under grad mode); ``"reference"`` calls :func:`chunked_attention` (an
+    explicit request, never a fallback)."""
     if kernels == "kernel":
         return flash_attention(q, k, v, causal=causal, window=window)
     if kernels == "reference":

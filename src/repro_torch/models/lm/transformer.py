@@ -1,7 +1,7 @@
 """Decoder-only transformer, dense GQA with RoPE and SwiGLU (the
-reference's ``models/lm/transformer.py``, its dense serving path): the
-prefill forward through the ``flash_attention`` kernel and greedy
-KV-cached decode.
+reference's ``models/lm/transformer.py``, its dense part): the prefill
+forward through the ``flash_attention`` kernel, greedy KV-cached decode,
+and training's :func:`lm_loss` with per-layer rematerialisation.
 
 The reference stacks the layers' parameters along a leading L axis for one
 ``jax.lax.scan``; here each layer is an :class:`LMBlock` in an
@@ -11,16 +11,26 @@ weights keep the reference's einsum layouts (``wq (d, H, Dh)``, ``wo (H,
 Dh, d)``, ``w_gate (d, ff)``, ``lm_head (d, V)``, ...), so converting
 between the two is a stack or an unstack (``repro_torch.params``).
 
-The parameters do not require gradients: this slice serves. MoE FFNs and
-MLA attention raise :class:`NotImplementedError` in :class:`LMConfig`.
+The parameters do not require gradients, so serving builds no autograd
+graph whatever the grad mode. Training asks for them:
+:func:`lm_value_and_grad` switches ``requires_grad`` on for the one
+gradient it takes and off again. Training attends through the plain
+``chunked_attention`` (the reference's training path; the
+``flash_attention`` kernel is forward-only) and, with ``LMConfig.remat``,
+runs each layer under a non-reentrant ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` of its scan body). MoE FFNs and MLA
+attention raise :class:`NotImplementedError` in :class:`LMConfig`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.lm.attention import attention, decode_attention
@@ -42,8 +52,15 @@ class LMConfig:
     moe: Any = None                 # waits for Mixtral / DeepSeek-V2
     rope_theta: float = 1e4
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True              # checkpoint each layer in training
     q_chunk: int = 512              # chunked_attention's blocks
     kv_chunk: int = 1024
+    # The reference unrolls its layer scan into a Python loop with this
+    # (the dry run's cost calibration). The port's layers are always a
+    # Python loop, its unrolled path, so the flag changes nothing here; it
+    # is kept so that make_lm_arch's build(unroll=...) gives the
+    # reference's config.
+    unroll_layers: bool = False
 
     def __post_init__(self):
         if self.attn_type == "mla":
@@ -199,12 +216,20 @@ def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
 def lm_hidden(model: LM, tokens: torch.Tensor,
               kernels: str = "kernel") -> torch.Tensor:
     """tokens ``(B, S)`` -> the residual stream after the last layer,
-    ``(B, S, d_model)`` in the model's dtype (before the final norm)."""
+    ``(B, S, d_model)`` in the model's dtype (before the final norm). With
+    ``cfg.remat`` and grad mode on, each layer runs under a checkpoint: the
+    backward keeps only each layer's input and recomputes the rest."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = _embed(model, tokens)
+    remat = model.cfg.remat and torch.is_grad_enabled()
     for blk in model.layers:
-        x = _layer_fwd(blk, x, positions, model.cfg, kernels)
+        if remat:
+            # the layer draws no random numbers: no RNG state to stash
+            x = checkpoint(_layer_fwd, blk, x, positions, model.cfg, kernels,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _layer_fwd(blk, x, positions, model.cfg, kernels)
     return x
 
 
@@ -221,6 +246,49 @@ def lm_forward(model: LM, tokens: torch.Tensor,
     auxiliary loss (0.0: the FFNs are dense). ``kernels`` routes the
     attention (:func:`~repro_torch.models.lm.attention.attention`)."""
     return lm_logits(model, lm_hidden(model, tokens, kernels)), 0.0
+
+
+def lm_loss(model: LM, tokens: torch.Tensor, aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, float]]:
+    """Next-token cross-entropy, the tokens doubling as shifted targets:
+    ``log_softmax`` of the float32 logits at positions ``:-1`` against
+    ``tokens[:, 1:]``, the mean of the negated picks (the reference's
+    ``lm_loss``, in its order). Returns ``(loss + aux_weight * aux, (loss,
+    aux))``; aux is 0.0 with dense FFNs. The attention is the plain
+    ``chunked_attention``, with each KV step checkpointed under grad mode,
+    and with ``cfg.remat`` each layer is checkpointed too."""
+    logits, aux = lm_forward(model, tokens, kernels="reference")
+    tgt = tokens[:, 1:].long()
+    lp = F.log_softmax(logits[:, :-1], dim=-1)
+    ll = torch.gather(lp, -1, tgt[..., None])
+    loss = -ll.mean()
+    return loss + aux_weight * aux, (loss, aux)
+
+
+@contextlib.contextmanager
+def _requiring_grad(model: LM):
+    """The model's parameters require grad inside, and not after."""
+    params = list(model.parameters())
+    try:
+        for p in params:
+            p.requires_grad_(True)
+        yield params
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+
+
+def lm_value_and_grad(model: LM, tokens: torch.Tensor,
+                      aux_weight: float = 0.01):
+    """``jax.value_and_grad(lm_loss, has_aux=True)`` on the port: returns
+    ``(loss, (ce, aux))`` detached and ``{parameter name: gradient}`` in
+    ``named_parameters`` order, each in its parameter's dtype. Grad mode
+    is on inside, whatever the caller's."""
+    names = [n for n, _ in model.named_parameters()]
+    with torch.enable_grad(), _requiring_grad(model) as params:
+        loss, (ce, aux) = lm_loss(model, tokens, aux_weight)
+        grads = torch.autograd.grad(loss, params)
+    return (loss.detach(), (ce.detach(), aux)), dict(zip(names, grads))
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ state's ``m``/``v`` mirror it leaf for leaf, in traversal order — the
 engine's grads (one ``{param_name: tensor}`` dict per layer) match a
 ``ModuleList``'s ``state_dict`` order. The updates are functional: they
 return new parameters (a module comes back as an updated deep copy) and new
-state, and leave their inputs unchanged.
+state, and leave their inputs unchanged. :func:`adamw_update_` applies the
+same update in place, one leaf at a time, for models whose parameters and
+moments cannot be held twice (the reference's train steps donate them).
 
 The arithmetic is the reference's, in its order, not ``torch.optim.AdamW``
 (whose decoupled decay and denominator round differently): the bias
@@ -49,27 +51,42 @@ def _zip_leaves(params, *trees):
     return ps, others
 
 
+def _corrections(state, b1, b2):
+    """The next step and its float32 bias corrections ``1 - b ** t``."""
+    step = state["step"] + 1
+    t = step.to(torch.float32)
+    return step, 1.0 - b1 ** t, 1.0 - b2 ** t
+
+
+def _leaf_step_(g, p, m, v, c1, c2, lr, b1, b2, eps, weight_decay):
+    """One leaf's AdamW step: overwrites the float32 ``m`` and ``v`` with
+    their new values and returns the new parameter in float32, leaving
+    ``p`` unchanged. Its temporaries are at most three of the leaf's
+    size."""
+    g32 = g.to(torch.float32)
+    m.mul_(b1).add_((1 - b1) * g32)
+    v.mul_(b2).add_((1 - b2) * g32 * g32)
+    del g32
+    upd = (m / c1).div_((v / c2).sqrt_().add_(eps))
+    p32 = p.to(torch.float32)
+    if weight_decay:
+        upd.add_(weight_decay * p32)
+    return p32 - upd.mul_(lr)
+
+
 def adamw_update(
     grads, params, state,
     lr=1e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0,
 ):
-    step = state["step"] + 1
-    t = step.to(torch.float32)
-    c1 = 1.0 - b1 ** t
-    c2 = 1.0 - b2 ** t
+    step, c1, c2 = _corrections(state, b1, b2)
     ps, (gs, ms, vs) = _zip_leaves(params, grads, state["m"], state["v"])
     new_p, new_m, new_v = {}, {}, {}
     with torch.no_grad():
         for (key, p), g, m, v in zip(ps, gs, ms, vs):
-            g32 = g.to(torch.float32)
-            p32 = p.to(torch.float32)
-            m_new = b1 * m + (1 - b1) * g32
-            v_new = b2 * v + (1 - b2) * g32 * g32
-            upd = (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
-            if weight_decay:
-                upd = upd + weight_decay * p32
-            new_p[key] = (p32 - lr * upd).to(p.dtype)
-            new_m[key], new_v[key] = m_new, v_new
+            new_m[key], new_v[key] = m.clone(), v.clone()
+            new_p[key] = _leaf_step_(
+                g, p, new_m[key], new_v[key], c1, c2, lr, b1, b2, eps,
+                weight_decay).to(p.dtype)
     m_keys = [k for k, _ in leaves(state["m"])]
     v_keys = [k for k, _ in leaves(state["v"])]
     keys = [k for k, _ in ps]
@@ -78,6 +95,27 @@ def adamw_update(
         "v": rebuild(state["v"], dict(zip(v_keys, (new_v[k] for k in keys)))),
         "step": step,
     }
+
+
+def adamw_update_(
+    grads, params, state,
+    lr=1e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0,
+):
+    """:func:`adamw_update` in place: each parameter, ``m`` and ``v`` leaf
+    is overwritten by :func:`_leaf_step_`, the arithmetic
+    ``adamw_update`` runs on copies of ``m`` and ``v``, and
+    ``state["step"]`` replaced; returns ``(params, state)``, the same
+    objects. The results are bitwise ``adamw_update``'s; the leaves go one
+    at a time, so the float32 temporaries are one leaf's, never the
+    tree's."""
+    step, c1, c2 = _corrections(state, b1, b2)
+    ps, (gs, ms, vs) = _zip_leaves(params, grads, state["m"], state["v"])
+    with torch.no_grad():
+        for (_, p), g, m, v in zip(ps, gs, ms, vs):
+            p.copy_(_leaf_step_(g, p, m, v, c1, c2, lr, b1, b2, eps,
+                                weight_decay))
+    state["step"] = step
+    return params, state
 
 
 def sgd_update(grads, params, lr=1e-2):

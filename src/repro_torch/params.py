@@ -24,7 +24,8 @@ The LM keeps the reference's einsum layouts too; the reference stacks the
 layers' parameters along a leading L axis (``params["layers"]["attn"]["wq"]``
 is ``(L, d, H, Dh)``), the port holds one :class:`~repro_torch.models.lm.
 transformer.LMBlock` per layer (``layers.<i>.wq``), so the converters
-unstack and stack that axis. bf16 arrays travel as numpy's ``bfloat16``
+unstack and stack that axis (``lm_grads_to_jax`` stacks the port's
+per-layer gradients the same way). bf16 arrays travel as numpy's ``bfloat16``
 (``ml_dtypes``, the type ``np.asarray`` gives a JAX bf16 array), bit for
 bit.
 """
@@ -277,17 +278,33 @@ def lm_from_jax(params_np: Dict, cfg: LMConfig,
     return model
 
 
-def lm_to_numpy(model: LM) -> Dict:
-    """An :class:`LM` -> the reference's params layout, the layers stacked
-    along L (the inverse of :func:`lm_from_jax`)."""
-    out = {k: _tensor_np(getattr(model, k)) for k in LM_TOP_KEYS}
+def _lm_np(get, n_layers: int) -> Dict:
+    """The reference's LM layout from ``get(port name)`` -> tensor, the
+    layers' leaves stacked along L."""
+    out = {k: _tensor_np(get(k)) for k in LM_TOP_KEYS}
     layers: Dict = {"attn": {}, "ffn": {}}
     for attr, path in LM_LAYER_KEYS.items():
-        stacked = np.stack([_tensor_np(getattr(blk, attr))
-                            for blk in model.layers])
+        stacked = np.stack([_tensor_np(get(f"layers.{i}.{attr}"))
+                            for i in range(n_layers)])
         node = layers
         for key in path[:-1]:
             node = node[key]
         node[path[-1]] = stacked
     out["layers"] = layers
     return out
+
+
+def lm_to_numpy(model: LM) -> Dict:
+    """An :class:`LM` -> the reference's params layout, the layers stacked
+    along L (the inverse of :func:`lm_from_jax`)."""
+    named = dict(model.named_parameters())
+    return _lm_np(named.__getitem__, len(model.layers))
+
+
+def lm_grads_to_jax(grads: Dict[str, torch.Tensor]) -> Dict:
+    """The port's ``{parameter name: gradient}`` (``lm_value_and_grad``)
+    -> the reference's params layout, the layers' gradients stacked along
+    L, as ``jax.value_and_grad(lm_loss)`` lays them out."""
+    n_layers = len({k.split(".")[1] for k in grads
+                    if k.startswith("layers.")})
+    return _lm_np(grads.__getitem__, n_layers)

@@ -370,10 +370,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 # ------------------------------------------------------------------ launcher
 
 @pytest.mark.parametrize("argv,code,say", [
-    (["--smoke"], 2, "LM training comes with its slice"),
-    (["--shape", "train_4k"], 2, "LM training comes with its slice"),
-    (["--shape", "train_4k", "--smoke"], 2,
-     "LM training comes with its slice"),
+    (["--smoke", "--device", "cpu"], 0, "phi3-medium-14b smoke: {'loss'"),
+    (["--shape", "train_4k", "--smoke", "--device", "cpu"], 0,
+     "3 steps: loss"),
+    (["--shape", "train_4k", "--smoke", "--device", "cpu", "--layers", "1",
+      "--seq", "32", "--steps", "2"], 0, "2 steps: loss"),
+    (["--shape", "train_4k", "--seq", "64"], 2,
+     "--seq cuts train_4k only with --smoke"),
     ([], 2, "no --shape"),
     (["--shape", "nope"], 2, "unknown shape"),
     (["--shape", "prefill_32k", "--offload"], 2, "requires a GNN arch"),
@@ -393,5 +396,76 @@ def test_launcher_lm_exit_codes_on_cpu(argv, code, say, capsys):
 
     with pytest.raises(SystemExit) as ei:
         main(["--arch", "phi3-medium-14b", *argv])
+    assert ei.value.code == code
+    assert say in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["command-r-plus-104b", "deepseek-67b"])
+def test_launcher_runs_the_other_dense_ids_on_cpu(arch, capsys):
+    from repro_torch.launch.train import main
+
+    for argv, say in ((["--smoke"], f"{arch} smoke: {{'loss'"),
+                      (["--shape", "train_4k", "--smoke", "--steps", "2"],
+                       "2 steps: loss"),
+                      (["--shape", "prefill_32k", "--smoke", "--seq", "32"],
+                       "flash_attention launches 0 (want 0)")):
+        with pytest.raises(SystemExit) as ei:
+            main(["--arch", arch, "--device", "cpu", *argv])
+        assert ei.value.code == 0
+        assert say in capsys.readouterr().out
+
+
+def test_cell_bytes_and_the_refusal_of_a_cell_that_cannot_fit(
+        monkeypatch, capsys):
+    """``lm_cell_bytes`` by term at Phi-3's widths; a cell whose reckoning
+    exceeds the device's memory is refused before anything is allocated
+    (the device's bytes replaced by an 80 GB card's)."""
+    from repro_torch.launch import train
+
+    cut = dataclasses.replace(CONFIG, n_layers=4)
+    b = train.lm_cell_bytes(cut, "train", 2, 4096)
+    n = cut.param_count() + cut.d_model
+    assert n == 2_390_799_360
+    assert (b["params"], b["grads"], b["adamw"]) == (2 * n, 2 * n, 8 * n)
+    assert b["logits"] == 16 * 2 * 4096 * 100352
+    assert b["total"] == sum(v for k, v in b.items() if k != "total")
+    assert 46e9 < b["total"] < 47e9
+    d = train.lm_cell_bytes(CONFIG, "decode", 4, 32768)
+    assert d["cache"] == 2 * 40 * 4 * 32768 * 10 * 128 * 2
+    assert d["params"] == 2 * (CONFIG.param_count() + CONFIG.d_model)
+    assert train.lm_cell_bytes(CONFIG, "prefill", 1, 32768)["total"] < 80e9
+    monkeypatch.setattr(train, "_device_bytes", lambda dev: 80 * 10 ** 9)
+    for arch, shape, batch in (("phi3-medium-14b", "train_4k", 256),
+                               ("phi3-medium-14b", "decode_32k", 128),
+                               ("command-r-plus-104b", "prefill_32k", 32)):
+        from repro_torch.configs import REGISTRY
+
+        s = base.LM_SHAPES[shape]
+        full = train.lm_cell_bytes(REGISTRY[arch].config, s["kind"], batch,
+                                   s["seq"])["total"]
+        with pytest.raises(SystemExit) as ei:
+            train.main(["--arch", arch, "--shape", shape, "--device", "cpu"])
+        assert ei.value.code == 1
+        out = capsys.readouterr().out
+        assert f"need {full / 1e9:.2f} GB" in out and "80.00 GB" in out
+
+
+@pytest.mark.parametrize("cut, code, say", [
+    ([], 1, "cut it with --layers / --batch"),
+    (["--layers", "1"], 0, "so it runs as asked"),
+    (["--batch", "1"], 0, "so it runs as asked"),
+])
+def test_only_an_uncut_cell_is_refused_on_its_reckoning(
+        cut, code, say, monkeypatch, capsys):
+    """On a device the reckoning exceeds (1 byte here), the cell run with
+    no cut of depth or batch is refused; a cell cut in depth or batch runs,
+    with the reckoning printed."""
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(train, "_device_bytes", lambda dev: 1)
+    with pytest.raises(SystemExit) as ei:
+        train.main(["--arch", "phi3-medium-14b", "--shape", "train_4k",
+                    "--smoke", "--device", "cpu", "--seq", "16",
+                    "--steps", "1", *cut])
     assert ei.value.code == code
     assert say in capsys.readouterr().out

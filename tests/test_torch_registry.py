@@ -4,10 +4,13 @@ reference's (``repro.configs``).
 - every port id: the same family, description, cells (kind and skip
   reason), runnable shapes and layer calibration as the reference's, and
   the reference's order;
-- every GNN cell in every build variant and every recsys cell: the port's
-  ``Built`` against the reference's ``build`` on a ``(1, 1)`` ``("data",
-  "model")`` mesh — the non-parameter arguments' shapes and dtypes, the
-  placements against the reference's ``PartitionSpec``s, and ``meta``;
+- every LM cell (train, prefill, decode), every GNN cell in every build
+  variant and every recsys cell: the port's ``Built`` against the
+  reference's ``build`` on a ``(1, 1)`` ``("data", "model")`` mesh — the
+  non-parameter arguments' shapes and dtypes, the placements against the
+  reference's ``PartitionSpec``s (an LM layer's with the stacked L
+  dropped, with the Megatron rules off and on), ``out_shardings`` and
+  ``meta``;
 - ``mfg_hop_sizes`` and ``gnn_model_flops`` on every GNN cell;
 - every registered ``smoke(device="cpu")``: finite, ``grad_norm > 0``.
 
@@ -32,6 +35,7 @@ from repro_torch.configs import base as tbase
 from repro_torch.launch.mesh import init_host_group, make_host_mesh
 
 IDS = list(tconfigs.REGISTRY)
+LM_IDS = [n for n in IDS if tconfigs.REGISTRY[n].family == "lm"]
 GNN_IDS = [n for n in IDS if tconfigs.REGISTRY[n].family == "gnn"]
 RECSYS_IDS = [n for n in IDS if tconfigs.REGISTRY[n].family == "recsys"]
 VARIANTS = ("base", "unsharded", "halo")
@@ -46,7 +50,8 @@ def meshes(tmp_path_factory):
 
 
 def test_registry_holds_the_ported_families_in_the_reference_order():
-    assert IDS == ["graphsage-reddit", "pna", "graphcast", "gcn-cora",
+    assert IDS == ["phi3-medium-14b", "command-r-plus-104b", "deepseek-67b",
+                   "graphsage-reddit", "pna", "graphcast", "gcn-cora",
                    "two-tower-retrieval", "gcn-igbm-3l"]
     ref = [n for n in jconfigs.REGISTRY if n in tconfigs.REGISTRY]
     assert ref == IDS
@@ -54,8 +59,8 @@ def test_registry_holds_the_ported_families_in_the_reference_order():
     want = [(a, s, (c.kind, c.skip))
             for a, s, c in jconfigs.list_cells() if a in IDS]
     got = [(a, s, (c.kind, c.skip)) for a, s, c in tconfigs.list_cells()]
-    assert got == want and len(got) == 20
-    assert len(tconfigs.list_cells(assigned_only=False)) == 24
+    assert got == want and len(got) == 32
+    assert len(tconfigs.list_cells(assigned_only=False)) == 36
     assert tconfigs.get_arch("pna") is tconfigs.REGISTRY["pna"]
 
 
@@ -74,6 +79,15 @@ def test_arch_spec_matches_reference(name):
         # the family comes from the GNNArch, not from the id
         assert dataclasses.asdict(t.config) == dataclasses.asdict(
             _reference_config(name))
+    if t.family == "lm":
+        mod = importlib.import_module(
+            f"repro.configs.{name.replace('-', '_')}")
+        for tc, jc in ((t.config, mod.CONFIG), (t.smoke_config, mod.SMOKE)):
+            for f in dataclasses.fields(tc):
+                if f.name != "dtype":
+                    assert getattr(tc, f.name) == getattr(jc, f.name), f.name
+            assert str(tc.dtype).split(".")[-1] == np.dtype(jc.dtype).name
+            assert tc.param_count() == jc.param_count()
 
 
 def _reference_config(name):
@@ -142,7 +156,8 @@ def _placements(spec, names=("data", "model")):
 
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
-           np.dtype(np.int32): torch.int32}
+           np.dtype(np.int32): torch.int32,
+           np.dtype(jax.numpy.bfloat16): torch.bfloat16}
 
 
 def _same_args(targs, tshard, jargs, jshard):
@@ -157,6 +172,92 @@ def _same_args(targs, tshard, jargs, jshard):
         assert tuple(t.shape) == tuple(j.shape)
         assert t.dtype == _DTYPES[np.dtype(j.dtype)]
         assert pt == _placements(pj.spec)
+
+
+def _lm_param_paths(tree):
+    """The reference's LM leaves keyed by the port's leaf name (``wq``
+    for the stacked ``["layers"]["attn"]["wq"]``, ``embed``, ...)."""
+    from repro_torch.params import LM_LAYER_KEYS, LM_TOP_KEYS
+
+    out = {k: tree[k] for k in LM_TOP_KEYS}
+    for attr, path in LM_LAYER_KEYS.items():
+        leaf = tree["layers"]
+        for key in path:
+            leaf = leaf[key]
+        out[attr] = leaf
+    return out
+
+
+def _same_lm_params(model, pshard, jparams, jspecs):
+    """The port's parameters and their placements against the reference's
+    leaves and specs: a layer's shape and spec are the stacked leaf's
+    without L."""
+    jp, js = _lm_param_paths(jparams), _lm_param_paths(jspecs)
+    names = [n for n, _ in model.named_parameters()]
+    assert list(pshard) == names
+    for name, p in model.named_parameters():
+        attr = name.rsplit(".", 1)[-1]
+        stacked = name.startswith("layers.")
+        shape, spec = tuple(jp[attr].shape), tuple(js[attr].spec)
+        if stacked:
+            assert shape[0] == len(model.layers)
+            shape, spec = shape[1:], spec[1:]
+        assert p.is_meta and tuple(p.shape) == shape, name
+        assert p.dtype == _DTYPES[np.dtype(jp[attr].dtype)], name
+        assert pshard[name] == _placements(spec), (name, spec)
+
+
+@pytest.mark.parametrize("megatron", ["0", "1"])
+@pytest.mark.parametrize("shape", list(tbase.LM_SHAPES))
+@pytest.mark.parametrize("name", LM_IDS)
+def test_lm_build_matches_reference(meshes, monkeypatch, name, shape,
+                                    megatron):
+    """Train, prefill and decode builds: ``meta``, the non-parameter
+    arguments, the parameters' (and AdamW state's) shapes and placements
+    against the reference's specs with L dropped, ``out_shardings``; the
+    Megatron rules off and on (``REPRO_MEGATRON``, read by both)."""
+    tmesh, jmesh = meshes
+    monkeypatch.setenv("REPRO_MEGATRON", megatron)
+    tb = tconfigs.REGISTRY[name].build(shape, tmesh)
+    jb = jconfigs.REGISTRY[name].build(shape, jmesh)
+    assert tb.meta == jb.meta
+    assert callable(tb.fn)
+    _same_lm_params(tb.args[0], tb.in_shardings[0], jb.args[0],
+                    jb.in_shardings[0])
+    kind = jb.meta["kind"]
+    if kind == "train":
+        topt, jopt = tb.args[1], jb.args[1]
+        tm = topt["m"]
+        jm = _lm_param_paths(jopt["m"])
+        for k, t in tm.items():
+            j = jm[k.rsplit(".", 1)[-1]]
+            want = tuple(j.shape)[1:] if k.startswith("layers.") \
+                else tuple(j.shape)
+            assert t.is_meta and t.dtype == torch.float32 and \
+                tuple(t.shape) == want
+        assert tuple(topt["step"].shape) == () and \
+            topt["step"].dtype == torch.int32
+        assert tb.in_shardings[1] == {"m": tb.in_shardings[0],
+                                      "v": tb.in_shardings[0],
+                                      "step": (Replicate(), Replicate())}
+        _same_args(tb.args[2:], tb.in_shardings[2:], jb.args[2:],
+                   jb.in_shardings[2:])
+        assert tb.out_shardings == (tb.in_shardings[0], tb.in_shardings[1],
+                                    None)
+    elif kind == "prefill":
+        _same_args(tb.args[1:], tb.in_shardings[1:], jb.args[1:],
+                   jb.in_shardings[1:])
+        assert tb.out_shardings is None and jb.out_shardings is None
+    else:
+        jcache, jcspec = jb.args[1]["scan"], jb.in_shardings[1]["scan"]
+        assert jb.args[1]["dense"] is None
+        assert list(tb.args[1]) == ["k", "v"]
+        _same_args([tb.args[1]["k"], tb.args[1]["v"]],
+                   [tb.in_shardings[1]["k"], tb.in_shardings[1]["v"]],
+                   [jcache["k"], jcache["v"]], [jcspec["k"], jcspec["v"]])
+        _same_args(tb.args[2:], tb.in_shardings[2:], jb.args[2:],
+                   jb.in_shardings[2:])
+        assert tb.out_shardings == (None, tb.in_shardings[1])
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
