@@ -208,16 +208,44 @@ and spill report and checks that the bf16 flash kernel's SASS holds
   phase A holds it (those launches not counted). The
   three ids' ``smoke()`` run in phase K's registry pass.
 
+- Phase M, MoE and MLA: (1) ``mixtral-8x7b`` at ``CONFIG`` widths (d_model
+  4096, 32 / 8 heads of 128, window 4,096, 8 experts of 14,336 top-2,
+  vocab 32,000, bf16) cut to ``M_LAYERS`` layers: kernel vs reference
+  prefill at ``CHECK_SEQ`` tokens within ``M_KERNEL_TOL`` (one
+  ``flash_attention`` launch a layer, none in reference), ``prefill_32k``
+  at batch 1 and ``decode_32k`` at batch 4 through the launcher, with
+  walls, peak GB beside ``lm_cell_bytes``, and the decode's all-expert
+  and active-expert bounds, then decode == prefill at 64 tokens over every
+  position within ``M_ROUNDTRIP_TOL`` (in bf16 the decode can route a
+  near-tie token to other experts: the flips are printed with their
+  margins and the decode is rerun fed the forward's experts); (2) the
+  flash wrapper at Mixtral's windowed shape against its plain version at
+  ``M_FLASH_CHECK_SEQ`` and at ``PREFILL_SEQ`` tokens, timed at the
+  latter beside causal, SDPA with the window's mask and the bound (not
+  counted); (3) at ``M_SMALL_LAYERS`` layers: ``long_500k`` (batch 1, a
+  524,288-position cache) finite, ``train_4k`` at batch
+  ``M_TRAIN_BATCH`` with the loss falling and no kernel launch, and the
+  kernel check and roundtrip in float32 within ``LM_F32_TOL``, no routing
+  flip allowed; remat on vs off at one layer bitwise; (4)
+  ``deepseek-v2-236b`` at ``CONFIG`` widths (MLA, 160 experts top-6 + 2
+  shared, a dense first layer) cut to ``DS_LAYERS`` layers: its real
+  parameters counted, ``prefill_32k`` (no flash launch: MLA attends
+  through ``chunked_attention``), ``decode_32k``, the bf16 roundtrip
+  within ``DS_ROUNDTRIP_TOL`` and the float32 one at 2 layers within
+  ``LM_F32_TOL``; (5) both MoE ``SMOKE``s card vs CPU within
+  ``L_CPU_TOL``, with the router's smallest top-k margin.
+
 - Phase K, the registry and ``distributed/``, in a process group of one
   rank (``nccl``, a file store; a ``gloo`` group beside it for the CPU
   runs) over a ``(1, 1)`` ``("data", "model")`` mesh, with the caching
   allocator's expandable segments on: (1) every registered arch's
-  ``smoke()`` on the card (the three dense LMs' ``lm_loss`` and
-  gradients included), finite with ``grad_norm > 0`` (the two-tower
-  one also kernel == reference bitwise, with its launches), and the count
-  of ``list_cells()``; (2) ``graphsage-reddit`` x ``ogb_products`` through
-  the registry's CAGNET build at the cell's full size (2,449,029 nodes,
-  61,859,140 R-MAT edges made on the card from a seeded generator with
+  ``smoke()`` on the card (the five LMs' ``lm_loss`` and gradients
+  included), finite with ``grad_norm > 0`` (the two-tower one also
+  kernel == reference bitwise, with its launches), and ``list_cells()``'s
+  40 assigned cells of 11 archs; (2) ``graphsage-reddit`` x
+  ``ogb_products`` through the registry's CAGNET build at the cell's full
+  size (2,449,029 nodes, 61,859,140 R-MAT edges made on the card from a
+  seeded generator with
   ``kronecker_graph``'s quadrant law, widths [100, 128, 47], per-layer
   remat): 3 steps with walls and peak device GB, step 1's loss within
   1e-5 relative of ``full_graph_loss`` on the same inputs; (3) the MFG
@@ -366,6 +394,30 @@ L_FLASH_LAYERS = 2
 L_ATTN_TOL = 1e-6
 # card against CPU at each dense id's SMOKE, max-relative
 L_CPU_TOL = 1e-4
+# phase M: MoE and MLA. mixtral-8x7b at CONFIG widths cut in depth (32 ->
+# M_LAYERS: 11.87 B parameters, 23.7 GB in bf16; 32 layers need 93 GB);
+# long_500k and train_4k at M_SMALL_LAYERS (train_4k's batch cut 256 ->
+# M_TRAIN_BATCH), remat on vs off at one layer; the windowed flash shape
+# held against plain at M_FLASH_CHECK_SEQ tokens, where the window cuts,
+# and at PREFILL_SEQ, where it is timed. deepseek-v2-236b cut 60 -> DS_LAYERS (the
+# dense first layer and two MoE ones: 9.33 B real parameters, 18.7 GB)
+M_LAYERS = 8
+M_SMALL_LAYERS = 2
+M_LONG_SEQ = 524288
+M_LONG_STEPS = 8
+M_TRAIN_BATCH = 2
+M_FLASH_CHECK_SEQ = 8192
+DS_LAYERS = 3
+DS_PARAMS = 9_330_795_520      # its real leaves at DS_LAYERS
+# phase M's bf16 tolerances (max |a - b| / max |a| of the logits), 2.5x
+# the card's first readings (PERF.md §5): Mixtral's kernel vs reference
+# prefill at CHECK_SEQ tokens (2.117e-02), and decode vs prefill over all
+# ROUNDTRIP_SEQ positions with the decode fed the forward's experts:
+# Mixtral's (2.988e-02) and DeepSeek-V2's at DS_LAYERS, the absorbed MLA
+# decode against the materialised prefill (3.606e-02)
+M_KERNEL_TOL = 5.3e-2
+M_ROUNDTRIP_TOL = 7.5e-2
+DS_ROUNDTRIP_TOL = 9.0e-2
 # queued_ms: the device sleeps ~25 ms (H100 clocks) while the host queues
 SLEEP_CYCLES = 50_000_000
 # phase A: the main shape against the exact FMA oracle: a seeded sample of
@@ -1039,31 +1091,33 @@ def flash_inputs(B: int, S: int, Hq: int, Hkv: int, D: int, dev):
     return q, k, v
 
 
-def flash_vs_plain(q, k, v):
+def flash_vs_plain(q, k, v, window=None):
     """One causal ``flash_attention`` launch on bf16 ``q``, ``k``, ``v``
-    held against ``flash_attention_ref`` on the same inputs: every element
-    within 2^-7 |plain| + 1e-6, at least 99% of them bitwise equal, and a
-    rerun bitwise. Returns ``(kernel's output, plain's, max abs err)``."""
+    (with a sliding ``window`` if given) held against
+    ``flash_attention_ref`` on the same inputs: every element within 2^-7
+    |plain| + 1e-6, at least 99% of them bitwise equal, and a rerun
+    bitwise. Returns ``(kernel's output, plain's, max abs err)``."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops, ref
 
     t0 = time.perf_counter()
-    kern = ops.flash_attention(q, k, v)
+    kern = ops.flash_attention(q, k, v, True, window)
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
-    plain = ref.flash_attention_ref(q, k, v)
+    plain = ref.flash_attention_ref(q, k, v, True, window)
     torch.cuda.synchronize()
     kf, pf = kern.float(), plain.float()
     err = (kf - pf).abs()
     check(bool(torch.all(err <= 2.0 ** -7 * pf.abs() + 1e-6)),
           f"flash_attention bf16 within 2^-7 |plain| + 1e-6 of plain at "
-          f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, causal (max abs err "
-          f"{float(err.max()):.3e}; first launch {t_first:.3f} s)")
+          f"q {tuple(q.shape)}, k/v {tuple(k.shape)}, causal, window "
+          f"{window} (max abs err {float(err.max()):.3e}; first launch "
+          f"{t_first:.3f} s)")
     same = float((kern == plain).float().mean())
     check(same >= 0.99, f"flash_attention: {same:.6f} of the elements "
           f"bitwise equal to plain (>= 0.99)")
-    check(torch.equal(ops.flash_attention(q, k, v), kern),
+    check(torch.equal(ops.flash_attention(q, k, v, True, window), kern),
           "flash_attention deterministic (rerun bitwise)")
     return kern, plain, float(err.max())
 
@@ -2555,10 +2609,21 @@ def phase_i(dev) -> dict:
     return out
 
 
-def roundtrip(model, tol: float, tally) -> None:
+def roundtrip(model, tol: float, tally) -> float:
     """A prompt of ``ROUNDTRIP_SEQ`` tokens (numpy seed 1) decoded token by
-    token against ``lm_forward`` on the same tokens in kernel mode: the
-    logits within ``tol`` max-relative."""
+    token against ``lm_forward`` on the same tokens in kernel mode
+    (``n_layers`` ``flash_attention`` launches for GQA, none for MLA): the
+    logits within ``tol`` max-relative at every position. With MoE layers
+    the forward's and each step's expert choices are recorded
+    (:class:`routing`). In bf16 the two routes' rounding can send a token
+    whose router logits nearly tie to another expert set; that token's
+    logits, and every later one's through attention, then differ by more
+    than rounding. Each such flip is printed with its layer and position
+    and the forward's and the decode's top-k margins there, and the prompt
+    is decoded again with every step fed the forward's experts
+    (``moe_ffn``'s ``experts``; the gates still the decode's own), and
+    that decode is held. In float32 no flip is allowed. Returns the
+    error."""
     import numpy as np
     import torch
 
@@ -2567,26 +2632,59 @@ def roundtrip(model, tol: float, tally) -> None:
     from repro_torch.models.lm.transformer import init_kv_cache, lm_forward
 
     cfg, dev = model.cfg, model.device
+    T = ROUNDTRIP_SEQ
     toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (1, ROUNDTRIP_SEQ)).astype(np.int32)).to(dev)
+        0, cfg.vocab, (1, T)).astype(np.int32)).to(dev)
     reset_launches()
-    with torch.no_grad():
+    with routing() as fwd, torch.no_grad():
         full, _ = lm_forward(model, toks, "kernel")
-    cache = init_kv_cache(cfg, 1, ROUNDTRIP_SEQ, device=dev)
     step = make_decode_step(cfg, "kernel", dev)
-    dec = []
-    for t in range(ROUNDTRIP_SEQ):
-        lg, cache = step(model, cache, toks[:, t:t + 1], t + 1)
-        dec.append(lg)
-    dec = torch.stack(dec, dim=1)
+
+    def decode(force=None):
+        cache = init_kv_cache(cfg, 1, T, device=dev)
+        with routing(force) as steps:
+            dec = torch.stack([step(model, cache, toks[:, t:t + 1], t + 1)[0]
+                               for t in range(T)], dim=1)
+        return dec, steps
+
+    dec, steps = decode()
+    fed = ""
+    if fwd.choices:
+        # the decode calls the MoE FFNs once a token and MoE layer, in order
+        n = len(fwd.choices)
+        flips = torch.stack([
+            (a.sort(-1)[0] != torch.cat(steps.choices[j::n]).sort(-1)[0])
+            .any(-1) for j, a in enumerate(fwd.choices)]).nonzero().tolist()
+        if flips:
+            dm = [torch.cat(steps.margins[j::n]) for j in range(n)]
+            note = (f"{len(flips)} of {n * T} routing decisions differ from "
+                    f"the forward's, the first at position "
+                    f"{min(t for _, t in flips)} (MoE layer, position: the "
+                    f"forward's / the decode's top-k margin: " + ", ".join(
+                        f"{j}, {t}: {float(fwd.margins[j][t]):.3e} / "
+                        f"{float(dm[j][t]):.3e}" for j, t in flips)
+                    + f"; the forward's smallest margin anywhere "
+                    f"{min(float(m.min()) for m in fwd.margins):.3e})")
+            if cfg.dtype == torch.float32:
+                check(False, f"float32: decode and forward route every "
+                      f"token alike ({note})")
+            print(f"  {cfg.name} {cfg.dtype}: {note}; the decode's error "
+                  f"over all {T} positions "
+                  f"{rel_err(full.cpu().numpy(), dec.cpu().numpy()):.3e}",
+                  flush=True)
+            dec, _ = decode(fwd.choices)
+            fed = ", every step fed the forward's experts"
     torch.cuda.synchronize()
-    tally(cfg.n_layers, f"{cfg.dtype} decode == prefill at {ROUNDTRIP_SEQ} "
-          f"tokens")
-    rt = rel_err(full.cpu().numpy(), dec.cpu().numpy())
-    check(bool(torch.isfinite(dec).all()) and rt <= tol,
-          f"{cfg.dtype}, {cfg.n_layers} layers: {ROUNDTRIP_SEQ} tokens "
-          f"decoded one at a time == lm_forward (kernel) within {tol} "
-          f"max-relative ({rt:.3e}; the reference's float32 figure is 2e-5)")
+    tally(cfg.n_layers if cfg.attn_type == "gqa" else 0,
+          f"{cfg.dtype} decode == prefill at {T} tokens")
+    full, dec = full.cpu().numpy(), dec.cpu().numpy()
+    err = rel_err(full, dec)
+    check(bool(np.isfinite(dec).all()) and err <= tol,
+          f"{cfg.name} {cfg.dtype}, {cfg.n_layers} layers: {T} tokens "
+          f"decoded one at a time{fed} == lm_forward (kernel) within {tol} "
+          f"max-relative at every position ({err:.3e}; the reference's "
+          f"float32 figure is 2e-5)")
+    return err
 
 
 # ----------------------------------------------------------------- phase L
@@ -2709,10 +2807,70 @@ def phase_l_remat(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_l_card_vs_cpu(dev) -> None:
-    """Each dense id's ``SMOKE``: ``lm_loss`` and its gradients, then one
-    in-place AdamW step, on the card and on the CPU from the same weights
-    and tokens, within ``L_CPU_TOL`` max-relative."""
+class routing:
+    """Inside, every MoE FFN the port calls records its tokens' top-k
+    experts in ``topk``'s order (``choices``, ``(T, K)`` a call) and each
+    token's gap between its k-th and (k+1)-th router logit (``margins``,
+    ``(T,)`` a call): where two routes' rounding could pick another
+    expert. With ``force``, a forward's ``choices`` (one a MoE layer), the
+    calls of a one-token-a-step decode are routed to the forward's experts
+    instead of their own top k: the ``n``-th call is token ``n // L`` of
+    MoE layer ``n % L``. Outside, nothing is recorded."""
+
+    def __init__(self, force=None):
+        self.force = force
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models.lm import transformer
+        from repro_torch.models.lm.moe import moe_shape
+
+        self.choices, self.margins = [], []
+        self._ffn = ffn = transformer.moe_ffn
+
+        def recording(p, x, mcfg):
+            # the router's product as moe_ffn groups it, so a near-tie
+            # resolves as it does there
+            T, d = x.shape
+            G = moe_shape(mcfg, T)[0]
+            lg = (x.float().reshape(G, T // G, d) @ p.router).reshape(T, -1)
+            top = torch.topk(lg, mcfg.top_k + 1, dim=-1)
+            self.choices.append(top[1][:, :-1])
+            self.margins.append(top[0][:, -2] - top[0][:, -1])
+            if self.force is None:
+                return ffn(p, x, mcfg)
+            n, L = len(self.choices) - 1, len(self.force)
+            return ffn(p, x, mcfg,
+                       experts=self.force[n % L][n // L:n // L + T])
+
+        transformer.moe_ffn = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models.lm import transformer
+
+        transformer.moe_ffn = self._ffn
+
+
+def router_margin(model, toks) -> float:
+    """The smallest top-k margin (:class:`routing`) over every MoE layer
+    and token of a reference forward of ``toks``."""
+    import torch
+
+    from repro_torch.models.lm.transformer import lm_forward
+
+    with routing() as r, torch.no_grad():
+        lm_forward(model, toks, "reference")
+    return min(float(m.min()) for m in r.margins)
+
+
+def phase_l_card_vs_cpu(dev, names) -> None:
+    """Each of the LM ids ``names``' ``SMOKE``: ``lm_loss`` and its
+    gradients, then one in-place AdamW step, on the card and on the CPU
+    from the same weights and tokens, within ``L_CPU_TOL`` max-relative.
+    For an MoE id the router's smallest top-k margin on those tokens is
+    printed beside it (:func:`router_margin`)."""
     import numpy as np
     import torch
 
@@ -2724,10 +2882,8 @@ def phase_l_card_vs_cpu(dev) -> None:
     from repro_torch.optim import adamw_init
 
     cpu = torch.device("cpu")
-    for name, arch in REGISTRY.items():
-        if arch.family != "lm":
-            continue
-        cfg = arch.smoke_config
+    for name in names:
+        cfg = REGISTRY[name].smoke_config
         toks = np.random.default_rng(0).integers(
             0, cfg.vocab, (2, 64)).astype(np.int32)
         res = []                         # the card's, then the CPU's
@@ -2748,11 +2904,17 @@ def phase_l_card_vs_cpu(dev) -> None:
         errs = {k: t_rel_err(host[k], card[k].cpu()) for k in host}
         worst = max(errs, key=errs.get)
         n_grads = sum(k.startswith("g.") for k in host)
+        margin = ""
+        if cfg.moe is not None:
+            model = init_lm_params(cfg, torch.Generator(cpu).manual_seed(0),
+                                   cpu)
+            margin = (f"; router's smallest top-k margin "
+                      f"{router_margin(model, torch.from_numpy(toks)):.3e}")
         check(errs[worst] <= L_CPU_TOL,
               f"{name} SMOKE: card vs CPU loss, {n_grads} gradients, "
               f"parameters, m and v after one step within {L_CPU_TOL} "
               f"max-relative (worst {worst} {errs[worst]:.3e}, loss "
-              f"{errs['loss']:.3e})")
+              f"{errs['loss']:.3e}{margin})")
 
 
 def phase_l_flash(dev) -> dict:
@@ -2820,14 +2982,409 @@ def phase_l(smi: str, dev) -> dict:
     """Phase L: dense-LM training on the card. The three dense LM ids'
     ``smoke()`` run in phase K's registry pass with every other id.
     Returns each kernel's launches over its runs."""
+    dense = ("phi3-medium-14b", "command-r-plus-104b", "deepseek-67b")
     for part in (lambda: phase_l_train(smi, dev), lambda: phase_l_remat(dev),
-                 lambda: phase_l_card_vs_cpu(dev)):
+                 lambda: phase_l_card_vs_cpu(dev, dense)):
         t0 = time.perf_counter()
         part()
         print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
     counts = phase_l_flash(dev)
     print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return counts
+
+
+# ----------------------------------------------------------------- phase M
+def launch_tally(counts: dict):
+    """``tally(want_flash, what)``: the kernel launches since the last
+    ``reset_launches`` are exactly ``want_flash`` ``flash_attention`` ones,
+    added into ``counts``."""
+    from repro_torch.kernels import launch_counts
+
+    def tally(want_flash: int, what: str) -> None:
+        n = launch_counts()
+        check(n == dict(NO_LAUNCHES, flash_attention=want_flash),
+              f"{what}: launches {n} == {want_flash} flash_attention")
+        for k, v in n.items():
+            counts[k] += v
+
+    return tally
+
+
+def gb(model) -> float:
+    """The model's parameter bytes, in GB."""
+    return sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+
+
+def reckoned(need: dict) -> str:
+    return f"{need['total'] / 1e9:.2f} GB (" + ", ".join(
+        f"{k} {v / 1e9:.2f}" for k, v in need.items() if k != "total") + ")"
+
+
+def no_drops(cfg, n_tokens: int, what: str) -> None:
+    """A token sends at most one assignment to an expert, so a group's
+    queue for an expert never holds more than the group's tokens: with
+    ``T / G <= C`` no assignment is dropped (and a forward and a decode of
+    the same tokens route them alike)."""
+    from repro_torch.models.lm.moe import moe_shape
+
+    G, C = moe_shape(cfg.moe, n_tokens)
+    check(n_tokens // G <= C, f"{what}: {n_tokens} tokens in {G} groups "
+          f"of {n_tokens // G} <= capacity {C}: no assignment dropped")
+
+
+def lm_serving(model, tally, smi: str, rt_tol: float) -> None:
+    """The serving checks of phase M on ``model`` (bf16, ``CONFIG``
+    widths cut in depth): for GQA the kernel route against the plain one
+    at ``CHECK_SEQ`` tokens within ``M_KERNEL_TOL`` (MLA has no kernel
+    route), ``prefill_32k`` at batch 1 and ``decode_32k`` at batch 4
+    through the launcher's ``_lm_prefill`` / ``_lm_decode`` (reckoned by
+    ``lm_cell_bytes`` and printed beside the peak, the decode beside two
+    bounds at 3.35 TB/s: every weight and the cache read once, and only
+    the experts each step's tokens route to, counted on a second run of
+    the same steps under :class:`routing`), and decode == prefill at
+    ``ROUNDTRIP_SEQ`` tokens within ``rt_tol`` (:func:`roundtrip`)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.train import _lm_decode, _lm_prefill, lm_cell_bytes
+    from repro_torch.models.lm.steps import make_prefill_step
+
+    cfg, dev = model.cfg, model.device
+    L = cfg.n_layers
+    flash = L if cfg.attn_type == "gqa" else 0
+    if flash:
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (1, CHECK_SEQ)).astype(np.int32)).to(dev)
+        logits = {}
+        for mode in ("kernel", "reference"):
+            reset_launches()
+            t0 = time.perf_counter()
+            logits[mode] = make_prefill_step(cfg, mode, dev)(model, toks)
+            torch.cuda.synchronize()
+            print(f"  prefill {mode} at {CHECK_SEQ} tokens: "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+            tally(flash if mode == "kernel" else 0,
+                  f"prefill {mode} at {CHECK_SEQ} tokens")
+        err = rel_err(logits["reference"].cpu().numpy(),
+                      logits["kernel"].cpu().numpy())
+        check(bool(torch.isfinite(logits["kernel"]).all())
+              and err <= M_KERNEL_TOL,
+              f"{cfg.name} prefill at {CHECK_SEQ} tokens, {L} layers: "
+              f"kernel's last logits within {M_KERNEL_TOL} max-relative of "
+              f"reference's ({err:.3e})")
+        del logits, toks
+
+    need = lm_cell_bytes(cfg, "prefill", PREFILL_BATCH, PREFILL_SEQ)
+    reset_launches()
+    r = _lm_prefill(model, PREFILL_BATCH, PREFILL_SEQ, "kernel",
+                    warmup_seq=PREFILL_WARMUP_SEQ)
+    tally(2 * flash, f"prefill_32k (warm-up at {PREFILL_WARMUP_SEQ} + "
+          f"timed)")
+    check(r["launches"] == flash and r["finite"],
+          f"prefill_32k: {r['launches']} flash_attention launches in the "
+          f"timed call == {flash}, finite last logits "
+          f"{tuple(r['logits'].shape)}")
+    print(f"  prefill_32k (batch {PREFILL_BATCH}, {PREFILL_SEQ} tokens): "
+          f"wall {r['wall_s']:.4f} s, {r['tokens_per_s']:.1f} tokens/s, "
+          f"{r['tflops']:.2f} TFLOP/s, peak device {r['peak_gb']:.2f} GB "
+          f"(reckoned {reckoned(need)}); {smi}", flush=True)
+    del r
+    torch.cuda.empty_cache()
+
+    need = lm_cell_bytes(cfg, "decode", DECODE_BATCH, DECODE_SEQ)
+    reset_launches()
+    d = _lm_decode(model, DECODE_BATCH, DECODE_SEQ, DECODE_STEPS)
+    tally(0, "decode_32k")
+    check(d["finite"], f"decode_32k: {DECODE_STEPS} steps' logits finite")
+    weights = gb(model) * 1e9
+    bound_ms = (weights + need["cache"]) / HBM_BYTES_PER_S * 1e3
+    print(f"  decode_32k (batch {DECODE_BATCH}, cache {DECODE_SEQ} "
+          f"positions, {need['cache'] / 1e9:.2f} GB, filled to "
+          f"{DECODE_FILL}): p50 {d['p50_ms']:.3f} ms, p99 {d['p99_ms']:.3f} "
+          f"ms a step, {d['tokens_per_s']:.1f} tokens/s, peak device "
+          f"{d['peak_gb']:.2f} GB (reckoned {reckoned(need)}); bound "
+          f"(every weight, {weights / 1e9:.2f} GB, and the cache at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s) {bound_ms:.3f} ms", flush=True)
+    del d
+    torch.cuda.empty_cache()
+    if cfg.moe is not None:
+        # the same steps again (same seeds, so the same tokens and routes),
+        # untimed, counting the experts each step's tokens route to
+        with routing() as r:
+            _lm_decode(model, DECODE_BATCH, DECODE_SEQ, DECODE_STEPS)
+        m = cfg.moe
+        n = L - m.first_dense
+        per = 3 * cfg.d_model * m.d_ff_expert * model.layers[0].w_gate \
+            .element_size()
+        used = [sum(int(c.unique().numel()) for c in r.choices[i:i + n])
+                for i in range(0, len(r.choices), n)]
+        base = weights - n * m.n_experts * per + need["cache"]
+        act = [(base + u * per) / HBM_BYTES_PER_S * 1e3 for u in used]
+        print(f"  decode_32k's active-expert bound (the dense weights, the "
+              f"cache, and the {min(used)}..{max(used)} of {n} x "
+              f"{m.n_experts} experts a step's {DECODE_BATCH} tokens route "
+              f"to): {min(act):.3f}..{max(act):.3f} ms a step, median "
+              f"{float(np.median(act)):.3f} ms", flush=True)
+        del r
+        torch.cuda.empty_cache()
+
+    no_drops(cfg, ROUNDTRIP_SEQ, "decode == prefill's forward")
+    no_drops(cfg, 1, "decode == prefill's steps")
+    roundtrip(model, rt_tol, tally)
+
+
+def phase_m_mixtral(smi: str, dev, counts: dict) -> None:
+    """Mixtral-8x7B serving at ``CONFIG`` widths, ``M_LAYERS`` layers
+    (:func:`lm_serving`), weights from ``torch.Generator`` seed 0."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.mixtral_8x7b import CONFIG
+    from repro_torch.models.lm.transformer import count_params, init_lm_params
+
+    cfg = dataclasses.replace(CONFIG, n_layers=M_LAYERS)
+    print(f"phase M: {cfg.name} serving at its published widths (d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.d_head}, window {cfg.window}, {cfg.moe.n_experts} experts "
+          f"of {cfg.moe.d_ff_expert} top-{cfg.moe.top_k}, vocab "
+          f"{cfg.vocab}, {cfg.dtype}); cut: {CONFIG.n_layers} -> {M_LAYERS} "
+          f"layers", flush=True)
+    t0 = time.perf_counter()
+    model = init_lm_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    check(n == count_params(cfg) == cfg.param_count() + cfg.d_model,
+          f"{n:,} parameters == param_count() {cfg.param_count():,} + the "
+          f"final norm ({gb(model):.2f} GB; made in "
+          f"{time.perf_counter() - t0:.1f} s)")
+    lm_serving(model, launch_tally(counts), smi, M_ROUNDTRIP_TOL)
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_m_small(smi: str, dev, counts: dict) -> None:
+    """Mixtral at ``M_SMALL_LAYERS`` layers, ``CONFIG`` widths: (1)
+    ``long_500k`` at batch 1, ``M_LONG_STEPS`` steps against a
+    ``M_LONG_SEQ``-position cache, finite; (2) ``train_4k`` at batch
+    ``M_TRAIN_BATCH``, ``L_STEPS`` steps of the launcher's ``_lm_train``:
+    every loss, ``m`` and ``v`` finite, the loss falling, the aux printed
+    each step, no kernel launched; (3) the kernel route against the plain
+    one and decode == prefill in float32 within ``LM_F32_TOL``; (4) remat
+    on vs off at one layer, batch 1: the loss, the aux and every gradient
+    bitwise."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.mixtral_8x7b import CONFIG
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.train import _lm_decode, _lm_train, lm_cell_bytes
+    from repro_torch.models.lm.steps import make_prefill_step
+    from repro_torch.models.lm.transformer import (
+        init_lm_params, lm_value_and_grad,
+    )
+
+    tally = launch_tally(counts)
+    cfg = dataclasses.replace(CONFIG, n_layers=M_SMALL_LAYERS)
+    model = init_lm_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+
+    # 1. long_500k, the cell's first run anywhere
+    need = lm_cell_bytes(cfg, "decode", 1, M_LONG_SEQ)
+    reset_launches()
+    d = _lm_decode(model, 1, M_LONG_SEQ, M_LONG_STEPS)
+    tally(0, "long_500k")
+    check(d["finite"], f"long_500k ({M_SMALL_LAYERS} layers, batch 1, "
+          f"{M_LONG_SEQ} positions, {need['cache'] / 1e9:.2f} GB of cache, "
+          f"window {cfg.window}): {M_LONG_STEPS} steps' logits finite")
+    print(f"  long_500k: p50 {d['p50_ms']:.3f} ms, p99 {d['p99_ms']:.3f} ms "
+          f"a step, peak device {d['peak_gb']:.2f} GB (reckoned "
+          f"{reckoned(need)}); {smi}", flush=True)
+    del d
+    torch.cuda.empty_cache()
+
+    # 2. train_4k
+    need = lm_cell_bytes(cfg, "train", M_TRAIN_BATCH, L_SEQ)
+    print(f"  train_4k: cut {CONFIG.n_layers} -> {M_SMALL_LAYERS} layers, "
+          f"batch 256 -> {M_TRAIN_BATCH}, seq {L_SEQ}; reckoned "
+          f"{reckoned(need)}", flush=True)
+    reset_launches()
+    r = _lm_train(model, M_TRAIN_BATCH, L_SEQ, L_STEPS)
+    n = launch_counts()
+    check(not any(n.values()) and r["launches"] == 0,
+          f"train steps launch no kernel ({n})")
+    check(r["finite"], f"{L_STEPS} steps: every loss, m and v finite")
+    for i, (w, tf) in enumerate(zip(r["walls_s"], r["tflops"])):
+        print(f"  step {i + 1}: loss {r['losses'][i]:.6f}, aux "
+              f"{r['auxes'][i]:.6f}, wall {w:.4f} s, "
+              f"{r['tokens_per_s'][i]:.1f} tokens/s, {tf:.2f} TFLOP/s",
+              flush=True)
+    check(r["losses"][-1] < r["losses"][0],
+          f"the loss falls: {r['losses'][0]:.6f} -> {r['losses'][-1]:.6f} "
+          f"(ln {cfg.vocab} = {math.log(cfg.vocab):.3f}); peak device "
+          f"{r['peak_gb']:.2f} GB")
+    del model, r
+    torch.cuda.empty_cache()
+
+    # 3. float32 at the same widths
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model = init_lm_params(f32, torch.Generator(dev).manual_seed(0), dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, CHECK_SEQ)).astype(np.int32)).to(dev)
+    reset_launches()
+    a, b = (make_prefill_step(f32, mode, dev)(model, toks)
+            for mode in ("kernel", "reference"))
+    tally(M_SMALL_LAYERS, f"float32 prefill at {CHECK_SEQ} tokens")
+    err = rel_err(b.cpu().numpy(), a.cpu().numpy())
+    check(err <= LM_F32_TOL,
+          f"float32, {M_SMALL_LAYERS} layers: prefill kernel within "
+          f"{LM_F32_TOL} max-relative of reference ({err:.3e})")
+    roundtrip(model, LM_F32_TOL, tally)
+    del model, a, b, toks
+    torch.cuda.empty_cache()
+
+    # 4. remat on vs off
+    one = dataclasses.replace(CONFIG, n_layers=1)
+    model = init_lm_params(one, torch.Generator(dev).manual_seed(0), dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, L_SEQ)).astype(np.int32)).to(dev)
+    out = {}
+    for remat in (True, False):
+        model.cfg = dataclasses.replace(one, remat=remat)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out[remat] = lm_value_and_grad(model, toks)
+        torch.cuda.synchronize()
+        print(f"  remat {remat}: peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB",
+              flush=True)
+    (a, ga), (b, gb) = out[True], out[False]
+    differ = sorted(k for k in ga if not torch.equal(ga[k], gb[k]))
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1][1], b[1][1])
+          and not differ,
+          f"1 layer, batch 1 x {L_SEQ}: remat on == off: loss "
+          f"{float(a[0]):.6f}, aux {float(a[1][1]):.6f} and all {len(ga)} "
+          f"gradients bitwise (differ: {differ})")
+    del model, out, ga, gb
+    torch.cuda.empty_cache()
+
+
+def phase_m_flash(smi: str, dev) -> None:
+    """The ``flash_attention`` wrapper at Mixtral's windowed shape (32 / 8
+    heads of 128, window 4,096, bf16): against the plain version at
+    ``M_FLASH_CHECK_SEQ`` tokens (:func:`flash_vs_plain`), then timed at
+    ``PREFILL_SEQ`` tokens, the shape ``prefill_32k`` launches it at,
+    against the plain version again, then timed beside the same shape
+    causal, SDPA with the window's mask (checked against plain within
+    2^-5) and the bound of the window's (q, k) pairs. These launches
+    compare and time a kernel, and are not counted."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.mixtral_8x7b import CONFIG as cfg
+    from repro_torch.kernels.flash_attention import ops
+
+    Hq, Hkv, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.window
+    q, k, v = flash_inputs(1, M_FLASH_CHECK_SEQ, Hq, Hkv, D, dev)
+    flash_vs_plain(q, k, v, window=W)
+    del q, k, v
+    S = PREFILL_SEQ
+    q, k, v = flash_inputs(1, S, Hq, Hkv, D, dev)
+    plain = flash_vs_plain(q, k, v, window=W)[1]
+    win_ms = time_ms(lambda: ops.flash_attention(q, k, v, True, W))
+    causal_ms = time_ms(lambda: ops.flash_attention(q, k, v, True, None))
+    pairs = Hq * (W * S - W * (W - 1) / 2.0)
+    flops = 4.0 * D * pairs
+    nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+    t_f, t_b = flops / BF16_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    G = Hq // Hkv
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    i = torch.arange(S, device=dev)
+    mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < W)
+    lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    lib_err = rel_err(plain.float().cpu().numpy(),
+                      lib.transpose(1, 2).float().cpu().numpy())
+    del lib, plain
+    check(lib_err <= 2.0 ** -5, f"SDPA with the window's mask within 2^-5 "
+          f"max-relative of plain ({lib_err:.3e})")
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
+    print(f"  flash_attention at q {tuple(q.shape)}, k/v {tuple(k.shape)}, "
+          f"window {W}: {win_ms:.4f} ms; causal {causal_ms:.4f} ms (ratio "
+          f"{win_ms / causal_ms:.3f}; the window's pairs "
+          f"{pairs / (Hq * S * (S + 1) / 2.0):.3f} of causal's); bound "
+          f"{max(t_f, t_b):.4f} ms ({'operations' if t_f >= t_b else 'bytes'}"
+          f": {flops:.4e} FLOP at the bf16 tensor-core rate {t_f:.4f} ms, "
+          f"bytes {t_b:.4f} ms); SDPA with the mask {lib_ms:.4f} ms; {smi}",
+          flush=True)
+    del q, k, v, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+
+
+def phase_m_deepseek(smi: str, dev, counts: dict) -> None:
+    """DeepSeek-V2-236B serving at ``CONFIG`` widths, ``DS_LAYERS`` layers
+    (the dense first layer and MoE ones): the parameters counted against
+    the leaves (``count_params``; the reference's ``param_count`` counts
+    3.63 G more), then :func:`lm_serving` with no flash launch (MLA
+    attends through ``chunked_attention``) and the bf16 roundtrip within
+    ``DS_ROUNDTRIP_TOL``; then decode == prefill in float32 at 2 layers
+    (the dense one and an MoE one, no routing flip allowed) within
+    ``LM_F32_TOL``, where only float32's rounding separates the absorbed
+    decode from the materialised prefill."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.deepseek_v2_236b import CONFIG
+    from repro_torch.models.lm.transformer import count_params, init_lm_params
+
+    tally = launch_tally(counts)
+    cfg = dataclasses.replace(CONFIG, n_layers=DS_LAYERS)
+    m = cfg.moe
+    print(f"phase M: {cfg.name} serving at its published widths (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, MLA q_lora {cfg.q_lora} / "
+          f"kv_lora {cfg.kv_lora} / {cfg.qk_nope_dim}+{cfg.qk_rope_dim} / "
+          f"{cfg.v_head_dim}, {m.n_experts} experts of {m.d_ff_expert} "
+          f"top-{m.top_k} + {m.n_shared} shared, {m.first_dense} dense "
+          f"layer of {m.d_ff_dense}, vocab {cfg.vocab}, {cfg.dtype}); cut: "
+          f"{CONFIG.n_layers} -> {DS_LAYERS} layers", flush=True)
+    t0 = time.perf_counter()
+    model = init_lm_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    check(n == count_params(cfg) == DS_PARAMS,
+          f"{n:,} parameters == the leaves {DS_PARAMS:,} (the reference's "
+          f"param_count() says {cfg.param_count():,}; {gb(model):.2f} GB; "
+          f"made in {time.perf_counter() - t0:.1f} s)")
+    lm_serving(model, tally, smi, DS_ROUNDTRIP_TOL)
+    del model
+    torch.cuda.empty_cache()
+    f32 = dataclasses.replace(CONFIG, n_layers=M_SMALL_LAYERS,
+                              dtype=torch.float32)
+    model = init_lm_params(f32, torch.Generator(dev).manual_seed(0), dev)
+    roundtrip(model, LM_F32_TOL, tally)
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_m(smi: str, dev) -> dict:
+    """Phase M: MoE and MLA serving, Mixtral training, both MoE
+    ``SMOKE``s card vs CPU. Returns each kernel's launches over its runs
+    (the flash wrapper's comparison launches left out)."""
+    counts = dict(NO_LAUNCHES)
+    for part in (lambda: phase_m_mixtral(smi, dev, counts),
+                 lambda: phase_m_flash(smi, dev),
+                 lambda: phase_m_small(smi, dev, counts),
+                 lambda: phase_m_deepseek(smi, dev, counts),
+                 lambda: phase_l_card_vs_cpu(
+                     dev, ("mixtral-8x7b", "deepseek-v2-236b"))):
+        t0 = time.perf_counter()
+        part()
+        print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
     return counts
 
 
@@ -2893,10 +3450,10 @@ def phase_k_registry(dev) -> None:
             ok = ok and r["kernel_matches_reference"] and r["launches_ok"]
         check(ok, f"{name} smoke on the card: loss {r['loss']:.6f}, "
                   f"grad_norm {r['grad_norm']:.6g}, finite")
-    print(f"  list_cells(): {len(list_cells())} assigned cells of "
-          f"{len(REGISTRY)} registered archs "
-          f"({len(list_cells(assigned_only=False))} cells in all)",
-          flush=True)
+    check(len(list_cells()) == 40 and len(REGISTRY) == 11,
+          f"list_cells(): {len(list_cells())} assigned cells (40) of "
+          f"{len(REGISTRY)} registered archs (11), "
+          f"{len(list_cells(assigned_only=False))} cells in all")
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         train_main(["--list"])
@@ -3345,6 +3902,9 @@ def main() -> int:
     lm_train = phase_l(smi, dev)
     print(f"phase L: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    moe_mla = phase_m(smi, dev)
+    print(f"phase M: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     registry = phase_k(smi, dev)
     print(f"phase K: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"all phases: {time.perf_counter() - t_all:.1f} s", flush=True)
@@ -3354,14 +3914,15 @@ def main() -> int:
         # each kernel's launches over the serving, GCN training, GAT
         # training, other families' training, phase J's runs, two-tower
         # serving and training, LM serving, phase L's prefills at the other
-        # dense ids' widths, phase K's registry smokes and bsr_spmm
-        # aggregate paths, every count read right after its runs
+        # dense ids' widths, phase M's MoE serving, phase K's registry
+        # smokes and bsr_spmm aggregate paths, every count read right
+        # after its runs
         n = sum(serving[m][name] + training[m][name] for m in MODES)
         n += sum(counts[name] for counts in gat.values())
         n += sum(counts[name] for counts in families.values())
         n += baseline[name]
         n += tt_serving[name] + tt_training[name] + lm["launches"][name]
-        n += lm_train[name]
+        n += lm_train[name] + moe_mla[name]
         n += registry[name]
         n += bsr_launches if name == "bsr_spmm" else 0
         kernels.append(dict(

@@ -1,6 +1,6 @@
 """Family-level ``ArchSpec`` builders (the reference's
-``configs/builders.py``): LM (dense GQA; MoE and MLA configs are refused
-by ``LMConfig`` until their slices), GNN and recsys.
+``configs/builders.py``): LM (dense or MoE FFNs, GQA or MLA attention),
+GNN and recsys.
 
 A build takes the cell's shape name and a ``("data", "model")``
 :class:`~torch.distributed.device_mesh.DeviceMesh`
@@ -112,10 +112,10 @@ def make_lm_arch(cfg: LMConfig, describe: str,
         return dict(loss=float(loss), grad_norm=gn,
                     finite=bool(np.isfinite(float(loss)) and np.isfinite(gn)))
 
-    # dense configs: (2, 4, L) (the reference's MoE first-dense offset
-    # waits for MoE)
+    # the dry run's calibration depths, past an MoE config's dense layers
+    fd = cfg.n_dense
     return ArchSpec(cfg.name, "lm", describe, cells, build, smoke,
-                    layer_calib=(2, 4, cfg.n_layers), config=cfg,
+                    layer_calib=(fd + 2, fd + 4, cfg.n_layers), config=cfg,
                     smoke_config=smoke_cfg)
 
 

@@ -21,13 +21,15 @@ the CUDA card — a serial and a pipelined run, each of ``epochs`` epochs
 the losses and gradients are finite and that the pipelined run equals the
 serial one bitwise.
 
-An LM id (``phi3-medium-14b``, ``command-r-plus-104b``, ``deepseek-67b``)
-with ``--smoke`` and no ``--shape`` runs its ``ArchSpec.smoke()``
-(``lm_loss`` and its gradients at ``SMOKE``). With ``--shape`` it runs
-that cell at ``CONFIG`` widths on the card, weights from
-``torch.Generator`` seed 0 and tokens from numpy seed 0:
-``prefill_32k`` / ``decode_32k`` the serving steps (:func:`_lm_prefill`,
-:func:`_lm_decode`; ``--kernels`` routes the prefill's attention),
+An LM id (``mixtral-8x7b``, ``deepseek-v2-236b``, ``phi3-medium-14b``,
+``command-r-plus-104b``, ``deepseek-67b``) with ``--smoke`` and no
+``--shape`` runs its ``ArchSpec.smoke()`` (``lm_loss`` and its gradients
+at ``SMOKE``). With ``--shape`` it runs that cell at ``CONFIG`` widths on
+the card, weights from ``torch.Generator`` seed 0 and tokens from numpy
+seed 0: ``prefill_32k`` / ``decode_32k`` / ``long_500k`` the serving steps
+(:func:`_lm_prefill`, :func:`_lm_decode`; ``--kernels`` routes a GQA
+prefill's attention: ``n_layers`` ``flash_attention`` launches, none for
+MLA, which attends through ``chunked_attention`` in both modes),
 ``train_4k`` ``--steps`` train steps of ``make_train_step`` on one batch
 (:func:`_lm_train`). ``--batch`` and ``--layers`` cut a cell, and
 ``--seq`` a serving cell, or ``train_4k`` with ``--smoke``; ``--smoke``
@@ -38,8 +40,9 @@ runs at the ``SMOKE`` widths (batch 2, 64 tokens by default) and takes
 depth or batch whose reckoned bytes (:func:`lm_cell_bytes`) exceed the
 device's memory is refused before anything is allocated, with the
 reckoning; a cut cell runs as asked (the reckoning is an upper one).
-``long_500k`` is skipped for a full-attention arch, with the reference's
-reason.
+``long_500k`` (a decode step against a 524,288-position cache) runs for
+a sliding-window arch (``mixtral-8x7b``) and is skipped for a
+full-attention one, with the reference's reason.
 
 Exit status 0 iff every check passes (or the cell is skipped); 1 when a
 check fails or an uncut LM cell cannot fit; 2 for an unknown arch,
@@ -198,7 +201,8 @@ def _lm_decode(model, batch: int, seq: int, steps: int = LM_DECODE_STEPS,
                kernels: str = "kernel", seed: int = 0,
                profile: bool = False) -> dict:
     """``steps`` greedy ``make_decode_step`` calls on ``model``'s device
-    against a ``seq``-position KV cache whose first ``seq - steps``
+    against a ``seq``-position KV cache (each of ``init_kv_cache``'s
+    entries, MLA's latent ones included) whose first ``seq - steps``
     positions hold normals from a ``torch.Generator`` seeded with ``seed``
     (a stand-in for a prefilled prompt), so the steps fill the last
     positions. The first token is uniform from numpy ``seed``, each next
@@ -224,10 +228,10 @@ def _lm_decode(model, batch: int, seq: int, steps: int = LM_DECODE_STEPS,
     _reset_peak(dev)
     cache = init_kv_cache(cfg, batch, seq, device=dev)
     gen = torch.Generator(dev).manual_seed(seed)
-    for name in ("k", "v"):
-        for i in range(cfg.n_layers):
-            cache[name][i, :, :fill].copy_(torch.randn(
-                (batch, fill, cfg.n_kv_heads, cfg.d_head), generator=gen,
+    for c in cache.values():
+        for layer in c:
+            layer[:, :fill].copy_(torch.randn(
+                (batch, fill) + tuple(layer.shape[2:]), generator=gen,
                 device=dev))
     step = make_decode_step(cfg, kernels, dev)
     tok = torch.from_numpy(np.random.default_rng(seed).integers(
@@ -257,31 +261,62 @@ def _lm_decode(model, batch: int, seq: int, steps: int = LM_DECODE_STEPS,
 
 def lm_cell_bytes(cfg, kind: str, batch: int, seq: int) -> dict:
     """The device bytes an LM cell's step at ``cfg`` holds at its peak, by
-    term. Every kind holds the parameters in ``cfg.dtype``. A train step
-    adds their gradients, AdamW's float32 ``m`` and ``v``, four float32
-    ``(batch, seq, vocab)`` tensors at the loss (the logits, their
-    ``log_softmax`` and the two gradients), the head's float32 copy and its
-    gradient, and each layer's saved input (per-layer remat); a layer's own
-    activations, one layer's at a time under remat, are left out. A
-    prefill adds one layer's working set, ``batch * seq * (4 d_model + 3
-    d_ff)`` elements; a decode step the K and V caches of every layer and
-    one layer's float32 copy of them. The reckoning is an upper one: at
-    Phi-3-medium's widths, 4 layers and batch 2 of 4,096 tokens, a train
-    step reckons 46.29 GB and peaked at 36.90 GB on an H100 (PERF.md §4),
-    so the launcher refuses on it only a cell run with no cut."""
+    term. Every kind holds the parameters in ``cfg.dtype``, counted by the
+    reference's ``param_count`` (which counts an MoE config's dense first
+    layers as MoE layers and leaves out MLA's norms: at DeepSeek-V2's
+    widths it is 3.63 G parameters above the real leaves, whatever the
+    depth). A train step adds their gradients, AdamW's float32 ``m`` and
+    ``v``, four float32 ``(batch, seq, vocab)`` tensors at the loss (the
+    logits, their ``log_softmax`` and the two gradients), the head's
+    float32 copy and its gradient, and each layer's saved input (per-layer
+    remat); a layer's own activations, one layer's at a time under remat,
+    are left out. A prefill adds one layer's working set: ``batch * seq``
+    tokens at the residual stream plus the attention's q, k, v and output
+    widths (``3 d_model`` for GQA; MLA's per-head ``2 (qk_nope_dim +
+    qk_rope_dim) + 2 v_head_dim``) and the dense FFN's ``3 d_ff`` (an MoE
+    config's ``d_ff_dense`` where it has dense layers, else none), and for
+    an MoE config its expert buffers (``moe``: the ``G * E * C`` dispatch
+    rows at ``d_model`` and ``3 d_ff_expert``) and the ``batch * seq *
+    top_k`` token copies and gathered results at ``d_model``. A decode
+    step adds every layer's cache (GQA's K and V, ``2 Hkv Dh`` a position;
+    MLA's latent and rope key, ``kv_lora + qk_rope_dim``) and one layer's
+    float32 copy of it. The reckoning is an upper one: at Phi-3-medium's
+    widths, 4 layers and batch 2 of 4,096 tokens, a train step reckons
+    46.29 GB and peaked at 36.90 GB on an H100 (PERF.md §4), so the
+    launcher refuses on it only a cell run with no cut."""
+    from repro_torch.models.lm.moe import moe_shape
+
     item = cfg.dtype.itemsize
-    n = cfg.param_count() + cfg.d_model          # + the final norm
+    d = cfg.d_model
+    n = cfg.param_count() + d                    # + the final norm
     out = dict(params=n * item)
     if kind == "train":
         out.update(
             grads=n * item, adamw=8 * n,
             logits=4 * 4 * batch * seq * cfg.vocab,
-            head=2 * 4 * cfg.d_model * cfg.vocab,
-            layer_inputs=cfg.n_layers * batch * seq * cfg.d_model * item)
+            head=2 * 4 * d * cfg.vocab,
+            layer_inputs=cfg.n_layers * batch * seq * d * item)
     elif kind == "prefill":
-        out["layer"] = batch * seq * (4 * cfg.d_model + 3 * cfg.d_ff) * item
+        if cfg.attn_type == "mla":
+            attn = cfg.n_heads * (2 * (cfg.qk_nope_dim + cfg.qk_rope_dim)
+                                  + 2 * cfg.v_head_dim)
+        else:
+            attn = 3 * d
+        m = cfg.moe
+        ff = cfg.d_ff if m is None else (
+            (m.d_ff_dense or cfg.d_ff) if cfg.n_dense else 0)
+        tokens = batch * seq
+        out["layer"] = tokens * (d + attn + 3 * ff) * item
+        if m is not None:
+            G, C = moe_shape(m, tokens)
+            out["moe"] = (G * m.n_experts * C * (d + 3 * m.d_ff_expert)
+                          + 2 * tokens * m.top_k * d) * item
     else:
-        kv = 2 * batch * seq * cfg.n_kv_heads * cfg.d_head
+        if cfg.attn_type == "mla":
+            per = cfg.kv_lora + cfg.qk_rope_dim
+        else:
+            per = 2 * cfg.n_kv_heads * cfg.d_head
+        kv = batch * seq * per
         out.update(cache=cfg.n_layers * kv * item, cache_f32=4 * kv)
     out["total"] = sum(out.values())
     return out
@@ -303,14 +338,14 @@ def _lm_train(model, batch: int, seq: int, steps: int = LM_TRAIN_STEPS,
               seed: int = 0, profile: bool = False) -> dict:
     """``steps`` calls of ``make_train_step`` (lr 1e-4, AdamW in place)
     on ``model``'s device on one batch: tokens ``(batch, seq)`` uniform
-    from numpy ``seed``. Returns each step's loss, wall (host clock,
-    ending in a synchronise), tokens/s and achieved TFLOP/s
-    (``lm_model_flops`` + ``lm_attention_correction``, remat's recompute
-    not counted), the peak device GB since the optimizer state was made
-    (it included), the steps' ``flash_attention`` launches, and
-    ``finite``: every loss, and every ``m`` and ``v`` leaf after each step
-    (a non-finite gradient makes them so); with ``profile``, one more step
-    under :func:`_profiled` (``profile``)."""
+    from numpy ``seed``. Returns each step's loss, MoE aux loss (0.0 for a
+    dense config), wall (host clock, ending in a synchronise), tokens/s
+    and achieved TFLOP/s (``lm_model_flops`` + ``lm_attention_correction``,
+    remat's recompute not counted), the peak device GB since the optimizer
+    state was made (it included), the steps' ``flash_attention``
+    launches, and ``finite``: every loss, and every ``m`` and ``v`` leaf
+    after each step (a non-finite gradient makes them so); with
+    ``profile``, one more step under :func:`_profiled` (``profile``)."""
     import time
 
     import numpy as np
@@ -332,7 +367,7 @@ def _lm_train(model, batch: int, seq: int, steps: int = LM_TRAIN_STEPS,
              + lm_attention_correction(cfg, "train", batch, seq)["flops"])
     _reset_peak(dev)
     before = launch_counts()["flash_attention"]
-    losses, walls, finite = [], [], True
+    losses, auxes, walls, finite = [], [], [], True
     for _ in range(steps):
         t0 = time.perf_counter()
         model, opt, metrics = step(model, opt, toks)
@@ -340,11 +375,13 @@ def _lm_train(model, batch: int, seq: int, steps: int = LM_TRAIN_STEPS,
         _sync(dev)
         walls.append(time.perf_counter() - t0)
         losses.append(loss)
+        auxes.append(float(metrics["aux"]))
         finite &= bool(np.isfinite(loss)) and all(
             bool(torch.isfinite(t).all())
             for k in ("m", "v") for t in opt[k].values())
     out = dict(
-        batch=batch, seq=seq, steps=steps, losses=losses, walls_s=walls,
+        batch=batch, seq=seq, steps=steps, losses=losses, auxes=auxes,
+        walls_s=walls,
         tokens_per_s=[batch * seq / w for w in walls],
         tflops=[flops / w / 1e12 for w in walls], peak_gb=_peak_gb(dev),
         launches=launch_counts()["flash_attention"] - before, finite=finite,
@@ -372,8 +409,9 @@ def _lm_main(args, arch) -> int:
             r = arch.smoke(device=args.device)
             print(f"{args.arch} smoke: {r}")
             return 0 if r["finite"] and r["grad_norm"] > 0 else 1
-        print(f"{args.arch}: no --shape given (train_4k, prefill_32k or "
-              f"decode_32k), and no --smoke")
+        shapes = [s for s, c in arch.cells.items() if not c.skip]
+        print(f"{args.arch}: no --shape given ({', '.join(shapes)}), and "
+              f"no --smoke")
         return 2
     if args.shape not in LM_SHAPES:
         print(f"{args.arch}: unknown shape {args.shape!r} "
@@ -417,10 +455,11 @@ def _lm_main(args, arch) -> int:
           flush=True)
     if train:
         r = _lm_train(model, batch, seq, args.steps, profile=args.profile)
-        for i, (loss, w, tps, tf) in enumerate(zip(
-                r["losses"], r["walls_s"], r["tokens_per_s"], r["tflops"])):
-            line = (f"  step {i + 1}: loss {loss:.6f}, wall {w:.3f} s, "
-                    f"{tps:.1f} tokens/s")
+        for i, (loss, aux, w, tps, tf) in enumerate(zip(
+                r["losses"], r["auxes"], r["walls_s"], r["tokens_per_s"],
+                r["tflops"])):
+            line = (f"  step {i + 1}: loss {loss:.6f}, aux {aux:.6f}, wall "
+                    f"{w:.3f} s, {tps:.1f} tokens/s")
             if dev.type == "cuda":
                 line += f", {tf:.3f} TFLOP/s"
             print(line)
@@ -433,7 +472,9 @@ def _lm_main(args, arch) -> int:
         r = _lm_prefill(model, batch, seq, args.kernels,
                         warmup_seq=min(LM_WARMUP_SEQ, seq),
                         profile=args.profile)
+        # MLA attends through chunked_attention in both modes
         want = cfg.n_layers if (args.kernels == "kernel"
+                                and cfg.attn_type == "gqa"
                                 and dev.type == "cuda") else 0
         line = (f"  wall {r['wall_s']:.3f} s, {r['tokens_per_s']:.1f} "
                 f"tokens/s")
@@ -708,8 +749,9 @@ def main(argv: Optional[Sequence[str]] = None):
                          "gradient (ArchSpec.smoke); with an LM --shape, "
                          "that cell at the LM's SMOKE widths")
     ap.add_argument("--shape", default=None,
-                    help="an LM cell: train_4k, prefill_32k or decode_32k "
-                         "(long_500k is skipped for full-attention archs)")
+                    help="an LM cell: train_4k, prefill_32k, decode_32k or "
+                         "long_500k (a decode cell; skipped for "
+                         "full-attention archs)")
     ap.add_argument("--batch", type=int, default=None,
                     help="LM cells: batch (default: the cell's)")
     ap.add_argument("--seq", type=int, default=None,

@@ -1,11 +1,19 @@
-"""GQA attention for the LM (the reference's ``models/lm/attention.py``,
-its dense part): the plain online-softmax :func:`chunked_attention`, the
-KV-cached :func:`decode_attention`, and :func:`attention`, the route
-between the ``flash_attention`` kernel and the plain version. Training
-attends through :func:`chunked_attention` (the reference's training path
-never reaches its Pallas kernel, and the port's kernel is forward-only).
+"""Attention for the LM (the reference's ``models/lm/attention.py``): the
+plain online-softmax :func:`chunked_attention`, the KV-cached
+:func:`decode_attention`, :func:`attention`, the route between the
+``flash_attention`` kernel and the plain version, and DeepSeek-V2's MLA.
+Training attends through :func:`chunked_attention` (the reference's
+training path never reaches its Pallas kernel, and the port's kernel is
+forward-only).
 
-The MLA functions (DeepSeek-V2) come with that model's slice.
+MLA (:func:`mla_train_attention`, :func:`mla_decode_attention`) follows
+the reference: training and prefill materialise each head's K and V from
+the ``kv_lora``-wide latent and attend through :func:`chunked_attention`
+whatever the kernel route (q/k dim ``qk_nope_dim + qk_rope_dim``, v dim
+``v_head_dim``: the reference never reaches its Pallas kernel there, and
+the port's kernel wants K and V of one shape); decode uses the absorbed
+form, scores straight against the ``(kv_lora + qk_rope_dim)``-wide latent
+cache.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.lm.layers import apply_rope, out_proj, proj, rmsnorm
 
 NEG_INF = -1e30
 KERNEL_MODES = ("kernel", "reference")
@@ -148,3 +157,80 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  q_chunk=q_chunk, kv_chunk=kv_chunk)
     raise ValueError(f"kernels={kernels!r} not in {KERNEL_MODES}")
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def _mla_queries(p, x: torch.Tensor, positions: torch.Tensor, cfg):
+    """The low-rank queries: ``w_dq``, ``rmsnorm(q_norm)``, ``w_uq``, split
+    into the no-rope ``(..., qk_nope_dim)`` part and the rotated ``(...,
+    qk_rope_dim)`` part."""
+    cq = rmsnorm(torch.matmul(x, p.w_dq), p.q_norm)
+    q = proj(cq, p.w_uq)                                 # (B, S, H, dn + dr)
+    qn, qr = q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
+    return qn, apply_rope(qr, positions, cfg.rope_theta)
+
+
+def _mla_latent(p, x: torch.Tensor, positions: torch.Tensor, cfg):
+    """The compressed KV ``rmsnorm(x w_dkv, kv_norm)`` ``(B, S, kv_lora)``
+    and the shared rotated key ``x w_kr`` ``(B, S, qk_rope_dim)``."""
+    ckv = rmsnorm(torch.matmul(x, p.w_dkv), p.kv_norm)
+    kr = apply_rope(torch.matmul(x, p.w_kr)[:, :, None, :], positions,
+                    cfg.rope_theta)[:, :, 0, :]
+    return ckv, kr
+
+
+def mla_train_attention(p, x: torch.Tensor, positions: torch.Tensor, cfg,
+                        q_chunk: int = 512,
+                        kv_chunk: int = 1024) -> torch.Tensor:
+    """Full-sequence MLA attention, causal. ``p`` holds the MLA leaves as
+    attributes (``w_dq, q_norm, w_uq, w_dkv, kv_norm, w_kr, w_uk, w_uv,
+    w_o``: an ``LMBlock``); ``x`` ``(B, S, d)``; ``positions`` ``(B, S)``.
+    Each head's K (``[ckv w_uk, kr]``) and V (``ckv w_uv``) are
+    materialised and attended by :func:`chunked_attention`. Returns ``(B,
+    S, d)`` in x's dtype."""
+    B, S, _ = x.shape
+    H, dr = cfg.n_heads, cfg.qk_rope_dim
+    qn, qr = _mla_queries(p, x, positions, cfg)
+    ckv, kr = _mla_latent(p, x, positions, cfg)
+    kn = proj(ckv, p.w_uk)                               # (B, S, H, dn)
+    v = proj(ckv, p.w_uv)                                # (B, S, H, dv)
+    qf = torch.cat([qn, qr], dim=-1)
+    kf = torch.cat([kn, kr[:, :, None, :].expand(B, S, H, dr)], dim=-1)
+    out = chunked_attention(qf, kf, v, causal=True, q_chunk=q_chunk,
+                            kv_chunk=kv_chunk)           # (B, S, H, dv)
+    return out_proj(out, p.w_o)
+
+
+def mla_decode_attention(p, x: torch.Tensor, ckv_cache: torch.Tensor,
+                         kr_cache: torch.Tensor, cache_len: int,
+                         cfg) -> torch.Tensor:
+    """One token's MLA attention in the absorbed form: ``q_nope w_uk^T``
+    scores the ``(B, S, kv_lora)`` latent cache directly, the rotated query
+    the ``(B, S, qk_rope_dim)`` rope-key cache, and the latent-weighted sum
+    goes through ``w_uv`` after (the reference's casts: float32 scores and
+    softmax over the whole allocated cache, masked at ``cache_len`` and
+    past, scale ``1 / sqrt(qk_nope_dim + qk_rope_dim)``, the latent sum cast
+    to x's dtype before ``w_uv``). ``x`` ``(B, 1, d)`` (the attention
+    norm's output). Writes the token's latent and rope key at position
+    ``cache_len - 1`` of the caches in place (the reference's
+    ``dynamic_update_slice``) and returns ``(B, 1, d)``."""
+    B = x.shape[0]
+    pos = cache_len - 1
+    positions = torch.full((B, 1), pos, device=x.device)
+    qn, qr = _mla_queries(p, x, positions, cfg)
+    ckv_new, kr_new = _mla_latent(p, x, positions, cfg)
+    ckv_cache[:, pos] = ckv_new[:, 0].to(ckv_cache.dtype)
+    kr_cache[:, pos] = kr_new[:, 0].to(kr_cache.dtype)
+    qa = torch.einsum("bshe,che->bshc", qn, p.w_uk)      # (B, 1, H, kv_lora)
+    ckv32 = ckv_cache.float()
+    s_c = torch.einsum("bshc,btc->bhst", qa.float(), ckv32)
+    s_r = torch.einsum("bshe,bte->bhst", qr.float(), kr_cache.float())
+    s = (s_c + s_r) * (1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim))
+    valid = torch.arange(ckv_cache.shape[1], device=x.device) < cache_len
+    attn = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+    oc = torch.einsum("bhst,btc->bshc", attn, ckv32)
+    o = torch.einsum("bshc,chv->bshv", oc.to(x.dtype), p.w_uv)
+    return out_proj(o, p.w_o)

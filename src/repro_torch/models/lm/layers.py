@@ -1,5 +1,6 @@
 """Transformer building blocks (the reference's ``models/lm/layers.py``):
-RMSNorm, RoPE, SwiGLU and the dense-layer initialisation."""
+RMSNorm, RoPE, SwiGLU, the per-head projections and the dense-layer
+initialisation."""
 from __future__ import annotations
 
 import math
@@ -39,6 +40,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhe->bshe", h, w)`` as one matrix product."""
+    d, H, E = w.shape
+    return torch.matmul(h, w.reshape(d, H * E)).view(*h.shape[:-1], H, E)
+
+
+def out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshe,hed->bsd", o, wo)`` as one matrix product."""
+    H, E, d = wo.shape
+    return torch.matmul(o.reshape(*o.shape[:-2], H * E), wo.reshape(H * E, d))
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

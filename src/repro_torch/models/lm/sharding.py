@@ -173,9 +173,10 @@ def batch_spec(batch: int, mesh) -> Spec:
 
 
 def kv_cache_specs(cache: Dict, mesh, batch: int) -> Dict[str, tuple]:
-    """``{"k", "v"}`` caches ``(L, B, S, Hkv, Dh)``: batch over the data
-    dims where it divides, the sequence over ``"model"``; at a batch that
-    does not divide, the sequence over every dim. Returns placements per
+    """The caches of ``init_kv_cache`` (``(L, B, S, ...)``: GQA's ``{"k",
+    "v"}``, MLA's ``{"ckv", "kr"}``): batch over the
+    data dims where it divides, the sequence over ``"model"``; at a batch
+    that does not divide, the sequence over every dim. Returns placements per
     cache; a cache with fewer than 3 dims or no layers is replicated."""
     bspec = batch_spec(batch, mesh)
     seq_axes = (("model",) if bspec != (None,) else tuple(

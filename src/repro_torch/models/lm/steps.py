@@ -93,9 +93,10 @@ def make_prefill_step(cfg: LMConfig, kernels: str = "kernel",
                       device: DeviceLike = None
                       ) -> Callable[[LM, torch.Tensor], torch.Tensor]:
     """``prefill_step(model, tokens (B, S)) -> logits (B, vocab)`` float32
-    at the last position: the forward over the prompt, its attention
+    at the last position: the forward over the prompt, its GQA attention
     routed by ``kernels`` ("kernel": the ``flash_attention`` kernel;
-    "reference": the plain ``chunked_attention``). The final norm and the
+    "reference": the plain ``chunked_attention``; MLA takes the plain one
+    in both). The final norm and the
     head act row by row, so applying them to the last position alone is
     the reference's ``lm_forward(...)[0][:, -1]`` without its (B, S, vocab)
     float32 logits (13 GB at 32k tokens)."""

@@ -1,15 +1,21 @@
-"""Decoder-only transformer, dense GQA with RoPE and SwiGLU (the
-reference's ``models/lm/transformer.py``, its dense part): the prefill
-forward through the ``flash_attention`` kernel, greedy KV-cached decode,
-and training's :func:`lm_loss` with per-layer rematerialisation.
+"""Decoder-only transformer (the reference's ``models/lm/transformer.py``):
+GQA, sliding-window GQA or MLA attention, a dense SwiGLU or MoE FFN, RoPE;
+the prefill forward through the ``flash_attention`` kernel, greedy
+KV-cached decode, and training's :func:`lm_loss` with per-layer
+rematerialisation.
 
 The reference stacks the layers' parameters along a leading L axis for one
 ``jax.lax.scan``; here each layer is an :class:`LMBlock` in an
 ``nn.ModuleList``, so initialising a 14 B-parameter model on the card makes
 one layer's float32 temporaries at a time, never an L-stacked one. The
 weights keep the reference's einsum layouts (``wq (d, H, Dh)``, ``wo (H,
-Dh, d)``, ``w_gate (d, ff)``, ``lm_head (d, V)``, ...), so converting
-between the two is a stack or an unstack (``repro_torch.params``).
+Dh, d)``, ``w_gate (d, ff)``, an expert's ``w_gate (E, d, ff)``, MLA's
+``w_uq (q_lora, H, dn + dr)``, ``lm_head (d, V)``, ...) and leaf names,
+so converting between the two is a stack or an unstack
+(``repro_torch.params``). An MoE config's first ``first_dense`` layers
+(DeepSeek-V2's dense first layer) are :attr:`LM.dense_layers`, apart from
+the rest, as the reference's ``params["dense_layers"]`` are apart from its
+scanned ``params["layers"]``.
 
 The parameters do not require gradients, so serving builds no autograd
 graph whatever the grad mode. Training asks for them:
@@ -18,8 +24,8 @@ gradient it takes and off again. Training attends through the plain
 ``chunked_attention`` (the reference's training path; the
 ``flash_attention`` kernel is forward-only) and, with ``LMConfig.remat``,
 runs each layer under a non-reentrant ``torch.utils.checkpoint`` (the
-reference's ``jax.checkpoint`` of its scan body). MoE FFNs and MLA
-attention raise :class:`NotImplementedError` in :class:`LMConfig`.
+reference's ``jax.checkpoint`` of its scan body). MLA attends through
+``chunked_attention`` in every mode, as the reference's does.
 """
 from __future__ import annotations
 
@@ -33,8 +39,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.lm.attention import attention, decode_attention
-from repro_torch.models.lm.layers import apply_rope, init_dense, rmsnorm, swiglu
+from repro_torch.models.lm.attention import (
+    attention, decode_attention, mla_decode_attention, mla_train_attention,
+)
+from repro_torch.models.lm.layers import (
+    apply_rope, init_dense, out_proj, proj, rmsnorm, swiglu,
+)
+from repro_torch.models.lm.moe import MoEConfig, moe_ffn, moe_param_shapes
+
+ATTN_TYPES = ("gqa", "mla")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,10 +60,16 @@ class LMConfig:
     d_head: int
     d_ff: int
     vocab: int
-    attn_type: str = "gqa"          # "gqa" only ("mla" waits for DeepSeek-V2)
-    window: Optional[int] = None    # sliding-window attention
-    moe: Any = None                 # waits for Mixtral / DeepSeek-V2
+    attn_type: str = "gqa"          # "gqa" | "mla"
+    window: Optional[int] = None    # sliding-window attention (Mixtral)
+    moe: Optional[MoEConfig] = None
     rope_theta: float = 1e4
+    # MLA dims (DeepSeek-V2)
+    q_lora: int = 1536
+    kv_lora: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True              # checkpoint each layer in training
     q_chunk: int = 512              # chunked_attention's blocks
@@ -63,16 +82,11 @@ class LMConfig:
     unroll_layers: bool = False
 
     def __post_init__(self):
-        if self.attn_type == "mla":
-            raise NotImplementedError(
-                "MLA attention (DeepSeek-V2) comes with that model's slice "
-                "of the port")
-        if self.attn_type != "gqa":
-            raise ValueError(f"attn_type={self.attn_type!r} not in ('gqa',)")
-        if self.moe is not None:
-            raise NotImplementedError(
-                "MoE FFNs (models/lm/moe.py: Mixtral, DeepSeek-V2) come with "
-                "their slice of the port")
+        if self.attn_type not in ATTN_TYPES:
+            raise ValueError(f"attn_type={self.attn_type!r} not in "
+                             f"{ATTN_TYPES}")
+        if self.moe is not None and not isinstance(self.moe, MoEConfig):
+            raise TypeError(f"moe={self.moe!r} is not a MoEConfig")
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"n_heads={self.n_heads} is not a multiple of "
                              f"n_kv_heads={self.n_kv_heads}")
@@ -82,90 +96,179 @@ class LMConfig:
         """Eligible for the long_500k shape (sliding window => O(S * W))."""
         return self.window is not None
 
+    @property
+    def n_dense(self) -> int:
+        """The leading layers with a dense FFN of an MoE config
+        (``moe.first_dense``); 0 without MoE."""
+        return self.moe.first_dense if self.moe is not None else 0
+
     def param_count(self) -> int:
+        """The reference's count: the embedding and head, two norms a
+        layer, the attention's matrices and the FFN's, every layer counted
+        as an MoE layer when ``moe`` is set (so a ``first_dense`` layer
+        counts as one, not at ``d_ff_dense``) and MLA's ``q_norm`` /
+        ``kv_norm`` left out; the final norm is left out too. The model's
+        real leaves are :func:`count_params`'."""
         d = self.d_model
         per = 2 * d                                             # norms
-        per += d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head
-        per += self.n_heads * self.d_head * d
-        per += 3 * d * self.d_ff
+        if self.attn_type == "gqa":
+            per += d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head
+            per += self.n_heads * self.d_head * d
+        else:
+            dn, dr, dv = self.qk_nope_dim, self.qk_rope_dim, self.v_head_dim
+            per += d * self.q_lora + self.q_lora * self.n_heads * (dn + dr)
+            per += d * (self.kv_lora + dr)
+            per += self.kv_lora * self.n_heads * (dn + dv)
+            per += self.n_heads * dv * d
+        if self.moe is None:
+            per += 3 * d * self.d_ff
+        else:
+            m = self.moe
+            per += m.n_experts * 3 * d * m.d_ff_expert
+            per += 3 * d * m.d_ff_shared_total
+            per += d * m.n_experts
         return self.vocab * d * 2 + per * self.n_layers         # + embed, head
 
     def active_param_count(self) -> int:
-        return self.param_count()
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        inactive = (m.n_experts - m.top_k) * 3 * self.d_model * m.d_ff_expert
+        return self.param_count() - inactive * self.n_layers
 
 
-def _empty(shape, cfg: LMConfig, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device),
-                        requires_grad=False)
+def _attn_shapes(cfg: LMConfig) -> Dict[str, tuple]:
+    """One layer's attention leaves and their shapes, the reference's
+    names (norm vectors included)."""
+    d, H = cfg.d_model, cfg.n_heads
+    if cfg.attn_type == "gqa":
+        Hkv, Dh = cfg.n_kv_heads, cfg.d_head
+        return {"wq": (d, H, Dh), "wk": (d, Hkv, Dh), "wv": (d, Hkv, Dh),
+                "wo": (H, Dh, d)}
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {"w_dq": (d, cfg.q_lora), "q_norm": (cfg.q_lora,),
+            "w_uq": (cfg.q_lora, H, dn + dr), "w_dkv": (d, cfg.kv_lora),
+            "kv_norm": (cfg.kv_lora,), "w_kr": (d, dr),
+            "w_uk": (cfg.kv_lora, H, dn), "w_uv": (cfg.kv_lora, H, dv),
+            "w_o": (H, dv, d)}
 
 
-def _ones(n: int, cfg: LMConfig, device) -> nn.Parameter:
-    return nn.Parameter(torch.ones(n, dtype=cfg.dtype, device=device),
-                        requires_grad=False)
+def _ffn_shapes(cfg: LMConfig, dense_ff: Optional[int]) -> Dict[str, tuple]:
+    """One layer's FFN leaves: the MoE's (:func:`moe_param_shapes`) unless
+    ``dense_ff`` or the config is dense."""
+    if cfg.moe is not None and dense_ff is None:
+        return moe_param_shapes(cfg.d_model, cfg.moe)
+    ff, d = dense_ff or cfg.d_ff, cfg.d_model
+    return {"w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)}
+
+
+# the leaves made as ones (norms), and the one kept in float32
+NORM_LEAVES = ("attn_norm", "ffn_norm", "q_norm", "kv_norm")
+FLOAT32_LEAVES = ("router",)
 
 
 class LMBlock(nn.Module):
-    """One layer's parameters, in the reference's layouts."""
+    """One layer's parameters, in the reference's layouts and leaf names:
+    ``attn_norm``, ``ffn_norm``, the attention's (GQA ``wq, wk, wv, wo``
+    or MLA ``w_dq, q_norm, w_uq, w_dkv, kv_norm, w_kr, w_uk, w_uv,
+    w_o``), the FFN's (dense ``w_gate, w_up, w_down``, or MoE ``router``,
+    the experts' ``w_gate, w_up, w_down`` and ``shared_*``). ``dense_ff``
+    makes an MoE config's layer dense at that width (a ``first_dense``
+    layer)."""
 
-    def __init__(self, cfg: LMConfig, device):
+    def __init__(self, cfg: LMConfig, device,
+                 dense_ff: Optional[int] = None):
         super().__init__()
-        d, H, Hkv, Dh, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                             cfg.d_head, cfg.d_ff)
-        self.attn_norm = _ones(d, cfg, device)
-        self.ffn_norm = _ones(d, cfg, device)
-        self.wq = _empty((d, H, Dh), cfg, device)
-        self.wk = _empty((d, Hkv, Dh), cfg, device)
-        self.wv = _empty((d, Hkv, Dh), cfg, device)
-        self.wo = _empty((H, Dh, d), cfg, device)
-        self.w_gate = _empty((d, ff), cfg, device)
-        self.w_up = _empty((d, ff), cfg, device)
-        self.w_down = _empty((ff, d), cfg, device)
+        self.is_moe = cfg.moe is not None and dense_ff is None
+        shapes = {"attn_norm": (cfg.d_model,), "ffn_norm": (cfg.d_model,),
+                  **_attn_shapes(cfg), **_ffn_shapes(cfg, dense_ff)}
+        for name, shape in shapes.items():
+            dtype = torch.float32 if name in FLOAT32_LEAVES else cfg.dtype
+            make = torch.ones if name in NORM_LEAVES else torch.empty
+            setattr(self, name, nn.Parameter(
+                make(shape, dtype=dtype, device=device), requires_grad=False))
 
 
 class LM(nn.Module):
     """The model's parameters on ``device`` (the CUDA card unless
     ``device="cpu"``), uninitialised except the norms (ones): fill them
-    with :func:`init_lm_params` or ``repro_torch.params.lm_from_jax``."""
+    with :func:`init_lm_params` or ``repro_torch.params.lm_from_jax``.
+    ``dense_layers`` holds an MoE config's first ``first_dense`` layers
+    (dense FFNs of ``d_ff_dense``), ``layers`` the rest; a dense config
+    has no dense layers apart."""
 
     def __init__(self, cfg: LMConfig, device: DeviceLike = None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        self.embed = _empty((cfg.vocab, cfg.d_model), cfg, device)
+        nd = cfg.n_dense
+        dff = (cfg.moe.d_ff_dense or cfg.d_ff) if nd else None
+        self.embed = _param((cfg.vocab, cfg.d_model), cfg, device)
+        self.dense_layers = nn.ModuleList(
+            LMBlock(cfg, device, dense_ff=dff) for _ in range(nd))
         self.layers = nn.ModuleList(LMBlock(cfg, device)
-                                    for _ in range(cfg.n_layers))
-        self.final_norm = _ones(cfg.d_model, cfg, device)
-        self.lm_head = _empty((cfg.d_model, cfg.vocab), cfg, device)
+                                    for _ in range(cfg.n_layers - nd))
+        self.final_norm = nn.Parameter(
+            torch.ones(cfg.d_model, dtype=cfg.dtype, device=device),
+            requires_grad=False)
+        self.lm_head = _param((cfg.d_model, cfg.vocab), cfg, device)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
+    def blocks(self):
+        """Every layer in order: the dense ones, then the rest."""
+        return [*self.dense_layers, *self.layers]
+
+
+def _param(shape, cfg: LMConfig, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device),
+                        requires_grad=False)
+
+
+def count_params(cfg: LMConfig) -> int:
+    """The elements of the model's real leaves (final norm, MLA's norms
+    and a ``first_dense`` layer's dense FFN included), without making
+    it."""
+    return sum(p.numel() for p in LM(cfg, device="meta").parameters())
+
+
+# the leaves drawn at another scale than init_dense's 1 / sqrt(shape[0])
+def _scale(name: str, cfg: LMConfig) -> Optional[float]:
+    if name == "wo":
+        return 1.0 / (cfg.n_heads * cfg.d_head) ** 0.5
+    if name == "w_o":
+        return 1.0 / (cfg.n_heads * cfg.v_head_dim) ** 0.5
+    if name == "router":
+        return 0.02
+    return None
+
 
 def init_lm_params(cfg: LMConfig, generator: torch.Generator,
                    device: DeviceLike = None) -> LM:
     """An :class:`LM` on ``device`` with the reference's initialisation
-    (``init_dense``: normals times ``1 / sqrt(fan-in)``; the embedding times
-    0.02; ``wo`` times ``1 / sqrt(H * Dh)``; norms ones), drawn from
-    ``generator``, which must lie on ``device``: embedding, head, then each
-    layer's ``wq, wk, wv, wo, w_gate, w_up, w_down``. One tensor's float32
+    (``init_dense``: normals times ``1 / sqrt(shape[0])``, so an expert
+    weight's fan-in is the expert count, as the reference's; the
+    embedding and the router times 0.02; ``wo`` / ``w_o`` times ``1 /
+    sqrt(H * head dim)``; norms ones), drawn from ``generator``, which must
+    lie on ``device``: embedding, head, then each layer's leaves in
+    :class:`LMBlock` order (the dense layers first). One tensor's float32
     draw at a time."""
     model = LM(cfg, device)
     dev = model.device
 
     def fill(p: nn.Parameter, scale: Optional[float] = None) -> None:
         p.copy_(init_dense(generator, p.shape, scale=scale,
-                           dtype=cfg.dtype, device=dev))
+                           dtype=p.dtype, device=dev))
 
     with torch.no_grad():
         fill(model.embed, 0.02)
         fill(model.lm_head)
-        for blk in model.layers:
-            for p in (blk.wq, blk.wk, blk.wv):
-                fill(p)
-            fill(blk.wo, 1.0 / (cfg.n_heads * cfg.d_head) ** 0.5)
-            for p in (blk.w_gate, blk.w_up, blk.w_down):
-                fill(p)
+        for blk in model.blocks():
+            for name, p in blk.named_parameters():
+                if name not in NORM_LEAVES:
+                    fill(p, _scale(name, cfg))
     return model
 
 
@@ -173,37 +276,37 @@ def init_lm_params(cfg: LMConfig, generator: torch.Generator,
 # forward
 # ---------------------------------------------------------------------------
 
-def _proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsd,dhe->bshe", h, w)`` as one matrix product."""
-    d, H, E = w.shape
-    return torch.matmul(h, w.reshape(d, H * E)).view(*h.shape[:-1], H, E)
-
-
-def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """``einsum("bshe,hed->bsd", o, wo)`` as one matrix product."""
-    H, E, d = wo.shape
-    return torch.matmul(o.reshape(*o.shape[:-2], H * E), wo.reshape(H * E, d))
-
-
 def _attn_block(blk: LMBlock, x: torch.Tensor, positions: torch.Tensor,
                 cfg: LMConfig, kernels: str) -> torch.Tensor:
     h = rmsnorm(x, blk.attn_norm)
-    q = apply_rope(_proj(h, blk.wq), positions, cfg.rope_theta)
-    k = apply_rope(_proj(h, blk.wk), positions, cfg.rope_theta)
-    v = _proj(h, blk.wv)
+    if cfg.attn_type == "mla":
+        return mla_train_attention(blk, h, positions, cfg,
+                                   q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    q = apply_rope(proj(h, blk.wq), positions, cfg.rope_theta)
+    k = apply_rope(proj(h, blk.wk), positions, cfg.rope_theta)
+    v = proj(h, blk.wv)
     o = attention(q, k, v, causal=True, window=cfg.window,
                   q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk, kernels=kernels)
-    return _out_proj(o, blk.wo)
+    return out_proj(o, blk.wo)
 
 
-def _ffn_block(blk: LMBlock, x: torch.Tensor) -> torch.Tensor:
-    return swiglu(rmsnorm(x, blk.ffn_norm), blk.w_gate, blk.w_up, blk.w_down)
+def _ffn_block(blk: LMBlock, x: torch.Tensor, cfg: LMConfig
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The FFN's output and, for an MoE layer, its aux loss (None for a
+    dense one)."""
+    h = rmsnorm(x, blk.ffn_norm)
+    if blk.is_moe:
+        y, aux = moe_ffn(blk, h.reshape(-1, h.shape[-1]), cfg.moe)
+        return y.view(h.shape), aux
+    return swiglu(h, blk.w_gate, blk.w_up, blk.w_down), None
 
 
 def _layer_fwd(blk: LMBlock, x: torch.Tensor, positions: torch.Tensor,
-               cfg: LMConfig, kernels: str) -> torch.Tensor:
+               cfg: LMConfig, kernels: str
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     x = x + _attn_block(blk, x, positions, cfg, kernels)
-    return x + _ffn_block(blk, x)
+    y, aux = _ffn_block(blk, x, cfg)
+    return x + y, aux
 
 
 def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
@@ -213,24 +316,35 @@ def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
     return model.embed[tokens.long()].to(model.cfg.dtype)
 
 
+def _lm_body(model: LM, tokens: torch.Tensor, kernels: str
+             ) -> Tuple[torch.Tensor, Any]:
+    """The residual stream after the last layer and the MoE layers' summed
+    aux loss (a float32 0-d tensor; 0.0 for a dense config)."""
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = _embed(model, tokens)
+    remat = model.cfg.remat and torch.is_grad_enabled()
+    auxs = []
+    for blk in model.blocks():
+        if remat:
+            # the layer draws no random numbers: no RNG state to stash
+            x, aux = checkpoint(_layer_fwd, blk, x, positions, model.cfg,
+                                kernels, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = _layer_fwd(blk, x, positions, model.cfg, kernels)
+        if aux is not None:
+            auxs.append(aux)
+    return x, (torch.stack(auxs).sum() if auxs else 0.0)
+
+
 def lm_hidden(model: LM, tokens: torch.Tensor,
               kernels: str = "kernel") -> torch.Tensor:
     """tokens ``(B, S)`` -> the residual stream after the last layer,
     ``(B, S, d_model)`` in the model's dtype (before the final norm). With
     ``cfg.remat`` and grad mode on, each layer runs under a checkpoint: the
     backward keeps only each layer's input and recomputes the rest."""
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = _embed(model, tokens)
-    remat = model.cfg.remat and torch.is_grad_enabled()
-    for blk in model.layers:
-        if remat:
-            # the layer draws no random numbers: no RNG state to stash
-            x = checkpoint(_layer_fwd, blk, x, positions, model.cfg, kernels,
-                           use_reentrant=False, preserve_rng_state=False)
-        else:
-            x = _layer_fwd(blk, x, positions, model.cfg, kernels)
-    return x
+    return _lm_body(model, tokens, kernels)[0]
 
 
 def lm_logits(model: LM, x: torch.Tensor) -> torch.Tensor:
@@ -241,11 +355,14 @@ def lm_logits(model: LM, x: torch.Tensor) -> torch.Tensor:
 
 
 def lm_forward(model: LM, tokens: torch.Tensor,
-               kernels: str = "kernel") -> Tuple[torch.Tensor, float]:
+               kernels: str = "kernel") -> Tuple[torch.Tensor, Any]:
     """tokens ``(B, S)`` -> logits ``(B, S, vocab)`` float32, and the MoE
-    auxiliary loss (0.0: the FFNs are dense). ``kernels`` routes the
-    attention (:func:`~repro_torch.models.lm.attention.attention`)."""
-    return lm_logits(model, lm_hidden(model, tokens, kernels)), 0.0
+    auxiliary loss summed over the MoE layers (a float32 0-d tensor; 0.0
+    when every FFN is dense). ``kernels`` routes the GQA attention
+    (:func:`~repro_torch.models.lm.attention.attention`); MLA attends
+    through ``chunked_attention`` in both modes."""
+    x, aux = _lm_body(model, tokens, kernels)
+    return lm_logits(model, x), aux
 
 
 def lm_loss(model: LM, tokens: torch.Tensor, aux_weight: float = 0.01
@@ -281,13 +398,16 @@ def _requiring_grad(model: LM):
 def lm_value_and_grad(model: LM, tokens: torch.Tensor,
                       aux_weight: float = 0.01):
     """``jax.value_and_grad(lm_loss, has_aux=True)`` on the port: returns
-    ``(loss, (ce, aux))`` detached and ``{parameter name: gradient}`` in
-    ``named_parameters`` order, each in its parameter's dtype. Grad mode
-    is on inside, whatever the caller's."""
+    ``(loss, (ce, aux))`` detached (aux 0.0 for a dense config) and
+    ``{parameter name: gradient}`` in ``named_parameters`` order, each in
+    its parameter's dtype. Grad mode is on inside, whatever the
+    caller's."""
     names = [n for n, _ in model.named_parameters()]
     with torch.enable_grad(), _requiring_grad(model) as params:
         loss, (ce, aux) = lm_loss(model, tokens, aux_weight)
         grads = torch.autograd.grad(loss, params)
+    if isinstance(aux, torch.Tensor):
+        aux = aux.detach()
     return (loss.detach(), (ce.detach(), aux)), dict(zip(names, grads))
 
 
@@ -295,17 +415,30 @@ def lm_value_and_grad(model: LM, tokens: torch.Tensor,
 # decode (KV-cached)
 # ---------------------------------------------------------------------------
 
+def _cache_leaves(cfg: LMConfig) -> Dict[str, tuple]:
+    """A layer's cache entries and their per-position shapes: GQA's K and V
+    ``(Hkv, Dh)``, MLA's latent ``(kv_lora,)`` and rope key
+    ``(qk_rope_dim,)``."""
+    if cfg.attn_type == "mla":
+        return {"ckv": (cfg.kv_lora,), "kr": (cfg.qk_rope_dim,)}
+    kv = (cfg.n_kv_heads, cfg.d_head)
+    return {"k": kv, "v": kv}
+
+
 def init_kv_cache(cfg: LMConfig, batch: int, max_len: int,
                   dtype: Optional[torch.dtype] = None,
                   device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """Zeroed ``{"k", "v"}`` caches, each ``(L, batch, max_len, Hkv, Dh)``
-    in ``dtype`` (the model's by default) on ``device`` (the CUDA card
-    unless ``device="cpu"``): the reference's ``cache["scan"]``."""
+    """Zeroed caches in ``dtype`` (the model's by default) on ``device``
+    (the CUDA card unless ``device="cpu"``), each ``(n_layers, batch,
+    max_len, ...)`` in :meth:`LM.blocks` order (the first ``first_dense``
+    layers are the reference's ``cache["dense"]``, the rest its
+    ``cache["scan"]``): GQA's ``{"k", "v"}`` ``(..., Hkv, Dh)``, MLA's
+    ``{"ckv", "kr"}`` ``(..., kv_lora)`` / ``(..., qk_rope_dim)``."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
     dtype = dtype or cfg.dtype
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {name: torch.zeros((cfg.n_layers, batch, max_len) + tail,
+                              dtype=dtype, device=device)
+            for name, tail in _cache_leaves(cfg).items()}
 
 
 def _gqa_decode_layer(blk: LMBlock, x: torch.Tensor, kc: torch.Tensor,
@@ -318,27 +451,40 @@ def _gqa_decode_layer(blk: LMBlock, x: torch.Tensor, kc: torch.Tensor,
     h = rmsnorm(x, blk.attn_norm)
     pos = cache_len - 1
     positions = torch.full((B, 1), pos, device=x.device)
-    q = apply_rope(_proj(h, blk.wq), positions, cfg.rope_theta)
-    k_new = apply_rope(_proj(h, blk.wk), positions, cfg.rope_theta)
-    v_new = _proj(h, blk.wv)
+    q = apply_rope(proj(h, blk.wq), positions, cfg.rope_theta)
+    k_new = apply_rope(proj(h, blk.wk), positions, cfg.rope_theta)
+    v_new = proj(h, blk.wv)
     kc[:, pos] = k_new[:, 0].to(kc.dtype)
     vc[:, pos] = v_new[:, 0].to(vc.dtype)
     o = decode_attention(q, kc, vc, cache_len, window=cfg.window)
-    return _out_proj(o, blk.wo)
+    return out_proj(o, blk.wo)
+
+
+def _decode_attn(blk: LMBlock, x: torch.Tensor, cache: Dict, i: int,
+                 cache_len: int, cfg: LMConfig) -> torch.Tensor:
+    if cfg.attn_type == "mla":
+        return mla_decode_attention(
+            blk, rmsnorm(x, blk.attn_norm), cache["ckv"][i], cache["kr"][i],
+            cache_len, cfg)
+    return _gqa_decode_layer(blk, x, cache["k"][i], cache["v"][i],
+                             cache_len, cfg)
 
 
 def lm_decode_step(model: LM, cache: Dict[str, torch.Tensor],
                    token: torch.Tensor, cache_len: int
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step: ``token`` ``(B, 1)``; ``cache_len`` valid positions
-    including the new token's. Returns logits ``(B, vocab)`` float32 and
-    ``cache``, updated in place at position ``cache_len - 1``."""
-    S = cache["k"].shape[2]
+    including the new token's. The dense layers run first, then the rest,
+    each with its FFN (dense or MoE) and its attention (GQA, windowed GQA
+    or MLA's absorbed form). Returns logits ``(B, vocab)`` float32 and
+    ``cache`` (:func:`init_kv_cache`'s), updated in place at position
+    ``cache_len - 1``."""
+    S = next(iter(cache.values())).shape[2]
     if not 1 <= cache_len <= S:
         raise ValueError(f"cache_len={cache_len} outside [1, {S}]")
+    cfg = model.cfg
     x = _embed(model, token)
-    for i, blk in enumerate(model.layers):
-        x = x + _gqa_decode_layer(blk, x, cache["k"][i], cache["v"][i],
-                                  cache_len, model.cfg)
-        x = x + _ffn_block(blk, x)
+    for i, blk in enumerate(model.blocks()):
+        x = x + _decode_attn(blk, x, cache, i, cache_len, cfg)
+        x = x + _ffn_block(blk, x, cfg)[0]
     return lm_logits(model, x)[:, 0], cache

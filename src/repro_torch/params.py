@@ -20,14 +20,17 @@ The two-tower model keeps the reference's layout: its tables and its
 towers' ``w (in, out)`` / ``b`` are parameters of the same shapes and names
 (``user_mlp.<i>.w`` for ``params["user_mlp"][i]["w"]``).
 
-The LM keeps the reference's einsum layouts too; the reference stacks the
-layers' parameters along a leading L axis (``params["layers"]["attn"]["wq"]``
-is ``(L, d, H, Dh)``), the port holds one :class:`~repro_torch.models.lm.
-transformer.LMBlock` per layer (``layers.<i>.wq``), so the converters
-unstack and stack that axis (``lm_grads_to_jax`` stacks the port's
-per-layer gradients the same way). bf16 arrays travel as numpy's ``bfloat16``
-(``ml_dtypes``, the type ``np.asarray`` gives a JAX bf16 array), bit for
-bit.
+The LM keeps the reference's einsum layouts and leaf names too; the
+reference stacks the layers' parameters along a leading L axis
+(``params["layers"]["attn"]["wq"]`` is ``(L, d, H, Dh)``), the port holds
+one :class:`~repro_torch.models.lm.transformer.LMBlock` per layer
+(``layers.<i>.wq``), so the converters unstack and stack that axis
+(``lm_grads_to_jax`` stacks the port's per-layer gradients the same way).
+An MoE config's first dense layers are the reference's unstacked
+``params["dense_layers"]`` list and the port's ``dense_layers.<i>.*``.
+Each leaf keeps its own dtype (``cfg.dtype``, the MoE router float32).
+bf16 arrays travel as numpy's ``bfloat16`` (``ml_dtypes``, the type
+``np.asarray`` gives a JAX bf16 array), bit for bit.
 """
 from __future__ import annotations
 
@@ -222,15 +225,24 @@ def two_tower_grads_to_jax(grads: Dict[str, torch.Tensor]) -> Dict:
     return _two_tower_np(grads.__getitem__, _tower_depths(grads))
 
 
-# LMBlock attribute -> its key path in the reference's params["layers"]
-LM_LAYER_KEYS: Dict[str, Tuple[str, ...]] = {
-    "attn_norm": ("attn_norm",), "ffn_norm": ("ffn_norm",),
-    "wq": ("attn", "wq"), "wk": ("attn", "wk"), "wv": ("attn", "wv"),
-    "wo": ("attn", "wo"),
-    "w_gate": ("ffn", "w_gate"), "w_up": ("ffn", "w_up"),
-    "w_down": ("ffn", "w_down"),
-}
+# the LMBlock leaves under the reference's layer["attn"] (GQA's and MLA's);
+# the norms sit at the layer's top, every other leaf under layer["ffn"]
+LM_ATTN_LEAVES = frozenset((
+    "wq", "wk", "wv", "wo",
+    "w_dq", "q_norm", "w_uq", "w_dkv", "kv_norm", "w_kr", "w_uk", "w_uv",
+    "w_o"))
+LM_NORM_LEAVES = ("attn_norm", "ffn_norm")
 LM_TOP_KEYS = ("embed", "final_norm", "lm_head")
+LM_GROUPS = ("layers", "dense_layers")
+
+
+def lm_leaf_path(attr: str) -> Tuple[str, ...]:
+    """An :class:`~repro_torch.models.lm.transformer.LMBlock` leaf's key
+    path inside one of the reference's layers (``("attn", "wq")``,
+    ``("ffn", "router")``, ``("attn_norm",)``)."""
+    if attr in LM_NORM_LEAVES:
+        return (attr,)
+    return ("attn" if attr in LM_ATTN_LEAVES else "ffn", attr)
 
 
 def _np_tensor(a, dtype: torch.dtype, what: str) -> torch.Tensor:
@@ -255,56 +267,92 @@ def _tensor_np(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
 def lm_from_jax(params_np: Dict, cfg: LMConfig,
                 device: DeviceLike = None) -> LM:
-    """The reference's dense LM params (``embed``, ``layers`` stacked along
-    L, ``final_norm``, ``lm_head``; numpy arrays in ``cfg.dtype``) -> an
-    :class:`LM` on ``device``, each layer one slice of the L axis."""
+    """The reference's LM params (``embed``, ``layers`` stacked along L,
+    ``final_norm``, ``lm_head``, and an MoE config's unstacked
+    ``dense_layers`` list; numpy arrays, each leaf in the port's dtype for
+    it: ``cfg.dtype``, the router float32) -> an :class:`LM` on
+    ``device``, each of ``layers`` one slice of the L axis, each of
+    ``dense_layers`` one entry of the list."""
     model = LM(cfg, device)
+    dense = params_np.get("dense_layers", [])
+    if len(dense) != len(model.dense_layers):
+        raise ValueError(f"{len(dense)} dense layers, the config "
+                         f"{len(model.dense_layers)}")
     with torch.no_grad():
         for k in LM_TOP_KEYS:
             getattr(model, k).copy_(_np_tensor(params_np[k], cfg.dtype, k))
-        for attr, path in LM_LAYER_KEYS.items():
-            a = params_np["layers"]
-            for key in path:
-                a = a[key]
-            if np.shape(a)[0] != cfg.n_layers:
+        for attr, p in (model.layers[0].named_parameters()
+                        if len(model.layers) else ()):
+            path = lm_leaf_path(attr)
+            a = _at(params_np["layers"], path)
+            if np.shape(a)[0] != len(model.layers):
                 raise ValueError(f"layers.{'.'.join(path)} has "
                                  f"{np.shape(a)[0]} layers, the config "
-                                 f"{cfg.n_layers}")
-            full = _np_tensor(a, cfg.dtype, ".".join(path))
+                                 f"{len(model.layers)}")
+            full = _np_tensor(a, p.dtype, ".".join(path))
             for i, blk in enumerate(model.layers):
                 getattr(blk, attr).copy_(full[i])
+        for i, blk in enumerate(model.dense_layers):
+            for attr, p in blk.named_parameters():
+                path = lm_leaf_path(attr)
+                p.copy_(_np_tensor(_at(dense[i], path), p.dtype,
+                                   f"dense_layers.{i}.{'.'.join(path)}"))
     return model
 
 
-def _lm_np(get, n_layers: int) -> Dict:
-    """The reference's LM layout from ``get(port name)`` -> tensor, the
-    layers' leaves stacked along L."""
-    out = {k: _tensor_np(get(k)) for k in LM_TOP_KEYS}
-    layers: Dict = {"attn": {}, "ffn": {}}
-    for attr, path in LM_LAYER_KEYS.items():
-        stacked = np.stack([_tensor_np(get(f"layers.{i}.{attr}"))
-                            for i in range(n_layers)])
-        node = layers
+def _nest(leaves: Dict[str, np.ndarray]) -> Dict:
+    """``{LMBlock leaf: array}`` -> one reference layer's nested dict."""
+    out: Dict = {}
+    for attr, a in leaves.items():
+        path = lm_leaf_path(attr)
+        node = out
         for key in path[:-1]:
-            node = node[key]
-        node[path[-1]] = stacked
-    out["layers"] = layers
+            node = node.setdefault(key, {})
+        node[path[-1]] = a
+    return out
+
+
+def _lm_np(named: Dict[str, torch.Tensor]) -> Dict:
+    """The reference's LM layout from ``{port name: tensor}``: the
+    ``layers``' leaves stacked along L, the ``dense_layers`` a list."""
+    out = {k: _tensor_np(named[k]) for k in LM_TOP_KEYS}
+    groups: Dict[str, Dict[int, Dict[str, torch.Tensor]]] = {
+        g: {} for g in LM_GROUPS}
+    for key, t in named.items():
+        parts = key.split(".")
+        if parts[0] in groups:
+            groups[parts[0]].setdefault(int(parts[1]), {})[parts[2]] = t
+    layers = [groups["layers"][i] for i in range(len(groups["layers"]))]
+    if layers:
+        out["layers"] = _nest({attr: np.stack([_tensor_np(l[attr])
+                                               for l in layers])
+                               for attr in layers[0]})
+    dense = groups["dense_layers"]
+    if dense:
+        out["dense_layers"] = [
+            _nest({a: _tensor_np(t) for a, t in dense[i].items()})
+            for i in range(len(dense))]
     return out
 
 
 def lm_to_numpy(model: LM) -> Dict:
     """An :class:`LM` -> the reference's params layout, the layers stacked
-    along L (the inverse of :func:`lm_from_jax`)."""
-    named = dict(model.named_parameters())
-    return _lm_np(named.__getitem__, len(model.layers))
+    along L and the dense layers a list (the inverse of
+    :func:`lm_from_jax`)."""
+    return _lm_np(dict(model.named_parameters()))
 
 
 def lm_grads_to_jax(grads: Dict[str, torch.Tensor]) -> Dict:
     """The port's ``{parameter name: gradient}`` (``lm_value_and_grad``)
     -> the reference's params layout, the layers' gradients stacked along
-    L, as ``jax.value_and_grad(lm_loss)`` lays them out."""
-    n_layers = len({k.split(".")[1] for k in grads
-                    if k.startswith("layers.")})
-    return _lm_np(grads.__getitem__, n_layers)
+    L and the dense layers' a list, as ``jax.value_and_grad(lm_loss)``
+    lays them out."""
+    return _lm_np(grads)

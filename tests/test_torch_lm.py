@@ -90,9 +90,19 @@ def test_config_widths_are_the_reference():
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError, match="DeepSeek-V2"):
-        _port_cfg(attn_type="mla")
-    with pytest.raises(NotImplementedError, match="Mixtral"):
+    """MoE and MLA configs construct (they were refused until their
+    slice); what is still refused is an unknown attention type, a ``moe``
+    that is no ``MoEConfig`` and query heads the KV heads do not
+    divide."""
+    from repro_torch.models.lm.moe import MoEConfig
+
+    mla = _port_cfg(attn_type="mla")
+    assert mla.attn_type == "mla" and mla.kv_lora == 512
+    moe = _port_cfg(moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=32))
+    assert moe.moe.groups == 32 and moe.n_dense == 0
+    with pytest.raises(ValueError, match="attn_type"):
+        _port_cfg(attn_type="mha")
+    with pytest.raises(TypeError, match="MoEConfig"):
         _port_cfg(moe=object())
     with pytest.raises(ValueError, match="multiple"):
         _port_cfg(n_kv_heads=3)
@@ -469,3 +479,273 @@ def test_only_an_uncut_cell_is_refused_on_its_reckoning(
                     "--steps", "1", *cut])
     assert ei.value.code == code
     assert say in capsys.readouterr().out
+
+
+# ------------------------------------------------------------------ MoE, MLA
+
+MOE_IDS = ["mixtral-8x7b", "deepseek-v2-236b"]
+
+
+def _moe_cfgs(name, **kw):
+    """The reference's and the port's ``SMOKE`` of an MoE id."""
+    import importlib
+
+    mod = name.replace("-", "_")
+    j = importlib.import_module(f"repro.configs.{mod}").SMOKE
+    t = importlib.import_module(f"repro_torch.configs.{mod}").SMOKE
+    jkw = {k: (getattr(jnp, str(v).split(".")[-1]) if k == "dtype" else v)
+           for k, v in kw.items()}
+    return dataclasses.replace(j, **jkw), dataclasses.replace(t, **kw)
+
+
+def _moe_models(name, seed=0, **kw):
+    jcfg, tcfg = _moe_cfgs(name, **kw)
+    params = _np(jax.jit(lambda k: jax_tf.init_lm_params(k, jcfg))(
+        jax.random.PRNGKey(seed)))
+    return jcfg, tcfg, params, lm_from_jax(params, tcfg, "cpu")
+
+
+def test_moe_mla_config_counts_equal_the_reference():
+    """``param_count`` / ``active_param_count`` and the FLOP counts are the
+    reference's formulas (its quirk included: DeepSeek-V2's dense first
+    layer counted as an MoE layer, MLA's norms left out), and
+    ``count_params`` counts the real leaves, the reference's
+    ``init_lm_params`` leaves plus nothing."""
+    import importlib
+
+    for name in MOE_IDS:
+        mod = name.replace("-", "_")
+        j = importlib.import_module(f"repro.configs.{mod}")
+        t = importlib.import_module(f"repro_torch.configs.{mod}")
+        for tc, jc in ((t.CONFIG, j.CONFIG), (t.SMOKE, j.SMOKE)):
+            assert tc.param_count() == jc.param_count()
+            assert tc.active_param_count() == jc.active_param_count()
+            for shape, s in base.LM_SHAPES.items():
+                args = (s["kind"], s["batch"], s["seq"])
+                assert base.lm_model_flops(tc, *args) == \
+                    jax_base.lm_model_flops(jc, *args)
+                assert base.lm_attention_correction(tc, *args) == \
+                    jax_base.lm_attention_correction(jc, *args)
+        shapes = jax.eval_shape(lambda k: jax_tf.init_lm_params(k, j.SMOKE),
+                                jax.random.PRNGKey(0))
+        leaves = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes))
+        assert transformer.count_params(t.SMOKE) == leaves
+    from repro_torch.configs import deepseek_v2_236b as ds
+    from repro_torch.configs import mixtral_8x7b as mx
+
+    ds3 = dataclasses.replace(ds.CONFIG, n_layers=3)
+    assert transformer.count_params(ds3) == 9_330_795_520
+    assert ds3.param_count() == 12_964_919_296
+    # the dense first layer counted at the MoE width (+3,634,135,040), the
+    # final norm (-5,120) and each layer's q_norm and kv_norm (-2,048)
+    # left out
+    for L in (3, 60):
+        c = dataclasses.replace(ds.CONFIG, n_layers=L)
+        assert c.param_count() - transformer.count_params(c) == \
+            3_634_129_920 - 2048 * L
+    mx8 = dataclasses.replace(mx.CONFIG, n_layers=8)
+    assert transformer.count_params(mx8) == mx8.param_count() + 4096
+
+
+@pytest.mark.parametrize("kernels", ["kernel", "reference"])
+@pytest.mark.parametrize("name", MOE_IDS)
+def test_moe_lm_forward_matches_jax(name, kernels):
+    jcfg, tcfg, params, model = _moe_models(name)
+    toks = _tokens(0, 2, 32)
+    want, waux = jax.jit(lambda p, t: jax_tf.lm_forward(p, t, jcfg))(
+        params, jnp.asarray(toks))
+    reset_launches()
+    got, aux = transformer.lm_forward(model, torch.from_numpy(toks), kernels)
+    assert not any(launch_counts().values())
+    assert got.dtype == torch.float32 and aux.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    assert abs(float(aux) - float(waux)) <= 1e-5
+    last = make_prefill_step(tcfg, kernels, "cpu")(model,
+                                                   torch.from_numpy(toks))
+    np.testing.assert_allclose(last.numpy(), np.asarray(want)[:, -1],
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", MOE_IDS)
+def test_moe_decode_steps_match_jax_with_equal_caches(name):
+    """Every step's logits and every layer's cache (the port's entries,
+    in ``LM.blocks()`` order, against the reference's ``dense`` then
+    ``scan`` layers) within 1e-5."""
+    jcfg, tcfg, params, model = _moe_models(name, seed=5)
+    B, T = 3, 12
+    toks = _tokens(4, B, T)
+    jcache = jax_tf.init_kv_cache(jcfg, B, T + 4)
+    cache = transformer.init_kv_cache(tcfg, B, T + 4, device="cpu")
+    assert list(cache) == list(jcache["scan"])
+    jstep = jax.jit(lambda p, c, t, n: jax_tf.lm_decode_step(p, c, t, n,
+                                                             jcfg))
+    step = make_decode_step(tcfg, "kernel", "cpu")
+    for t in range(T):
+        want, jcache = jstep(params, jcache, jnp.asarray(toks[:, t:t + 1]),
+                             jnp.int32(t + 1))
+        got, cache = step(model, cache, torch.from_numpy(toks[:, t:t + 1]),
+                          t + 1)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+    for k, c in cache.items():
+        want = np.concatenate([np.asarray(jcache[g][k]) for g in
+                               ("dense", "scan") if jcache[g] is not None])
+        np.testing.assert_allclose(c.numpy(), want, rtol=1e-5, atol=1e-5)
+        assert not c[:, :, T:].any()           # untouched past the tokens
+
+
+@pytest.mark.parametrize("name", MOE_IDS)
+def test_moe_decode_equals_forward_roundtrip(name):
+    """Decode token by token against the full forward: at ``SMOKE`` every
+    group holds one token (32 groups), no assignment is dropped either
+    way, so the routing is the same and the logits agree to float32's
+    rounding."""
+    from repro_torch.models.lm.moe import moe_shape
+
+    _, tcfg, _, model = _moe_models(name, seed=6)
+    T = 16
+    G, C = moe_shape(tcfg.moe, T)
+    assert G == T and tcfg.moe.top_k <= C
+    toks = torch.from_numpy(_tokens(5, 1, T))
+    full, _ = transformer.lm_forward(model, toks)
+    cache = transformer.init_kv_cache(tcfg, 1, T, device="cpu")
+    dec = torch.stack([transformer.lm_decode_step(
+        model, cache, toks[:, t:t + 1], t + 1)[0] for t in range(T)], dim=1)
+    err = float((dec - full).abs().max() / full.abs().max())
+    assert err < 2e-5, err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", MOE_IDS)
+def test_moe_converters_round_trip_bitwise(name, dtype):
+    """Both ways bitwise, every leaf in its own dtype: the router float32
+    in a bf16 model, as the reference keeps it."""
+    jcfg, tcfg, params, model = _moe_models(
+        name, seed=9, dtype=getattr(torch, dtype))
+    assert model.layers[0].router.dtype == torch.float32
+    assert model.layers[0].w_gate.dtype == getattr(torch, dtype)
+    back = lm_to_numpy(model)
+    assert jax.tree.structure(back) == jax.tree.structure(params)
+    assert all(a.dtype == b.dtype and a.shape == b.shape
+               and a.tobytes() == b.tobytes()
+               for a, b in zip(jax.tree.leaves(back),
+                               jax.tree.leaves(params)))
+    again = lm_from_jax(back, tcfg, "cpu")
+    assert all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+               for a, b in zip(again.parameters(), model.parameters()))
+
+
+@pytest.mark.parametrize("name", MOE_IDS)
+def test_moe_init_layouts_and_scales(name):
+    """``init_lm_params``' leaves have the reference's tree, shapes and
+    dtypes; the router is drawn at 0.02, an expert weight at ``1 /
+    sqrt(E)`` (the reference's fan-in of an ``(E, d, ff)`` leaf), MLA's
+    ``w_o`` at ``1 / sqrt(H * v_head_dim)``, the norms are ones."""
+    jcfg, tcfg = _moe_cfgs(name, dtype=torch.bfloat16, d_model=256,
+                           vocab=512)
+    m = transformer.init_lm_params(tcfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+    ref = jax.eval_shape(lambda k: jax_tf.init_lm_params(k, jcfg),
+                         jax.random.PRNGKey(0))
+    got = lm_to_numpy(m)
+    assert jax.tree.structure(got) == jax.tree.structure(ref)
+    assert jax.tree.map(lambda a: (a.shape, np.dtype(a.dtype)), got) == \
+        jax.tree.map(lambda a: (tuple(a.shape), np.dtype(a.dtype)), ref)
+    blk = m.layers[0]
+    E = tcfg.moe.n_experts
+    assert float(blk.router.std()) == pytest.approx(0.02, rel=0.1)
+    assert float(blk.w_up.float().std()) == pytest.approx(E ** -0.5,
+                                                          rel=0.1)
+    if tcfg.attn_type == "mla":
+        H, dv = tcfg.n_heads, tcfg.v_head_dim
+        assert float(blk.w_o.float().std()) == pytest.approx(
+            (H * dv) ** -0.5, rel=0.1)
+        assert torch.equal(blk.q_norm, torch.ones_like(blk.q_norm))
+        assert len(m.dense_layers) == 1
+        assert m.dense_layers[0].w_gate.shape == (256, tcfg.moe.d_ff_dense)
+    assert not any(p.requires_grad for p in m.parameters())
+    assert sum(p.numel() for p in m.parameters()) == \
+        transformer.count_params(tcfg)
+
+
+@pytest.mark.parametrize("name", MOE_IDS)
+def test_launcher_runs_the_moe_ids_on_cpu(name, capsys):
+    """``--smoke`` and the cut cells of both MoE ids exit 0 on the CPU;
+    Mixtral's ``long_500k`` (a sliding window) runs, DeepSeek-V2's is
+    skipped with the reference's reason."""
+    from repro_torch.launch.train import main
+
+    runs = [(["--smoke"], f"{name} smoke: {{'loss'"),
+            (["--shape", "train_4k", "--smoke", "--steps", "2"],
+             "2 steps: loss"),
+            (["--shape", "prefill_32k", "--smoke", "--seq", "32"],
+             "flash_attention launches 0 (want 0)"),
+            (["--shape", "decode_32k", "--smoke", "--seq", "6"], "6 steps"),
+            (["--shape", "prefill_32k", "--smoke", "--layers", "1",
+              "--seq", "32"], "1 layers")]
+    if name == "mixtral-8x7b":
+        runs.append((["--shape", "long_500k", "--smoke", "--seq", "40",
+                      "--batch", "1"], "32 steps"))
+    else:
+        runs.append((["--shape", "long_500k"], "skipped: full-attention"))
+    for argv, say in runs:
+        with pytest.raises(SystemExit) as ei:
+            main(["--arch", name, "--device", "cpu", *argv])
+        out = capsys.readouterr().out
+        assert ei.value.code == 0, out
+        assert say in out, out
+    with pytest.raises(SystemExit) as ei:
+        main(["--arch", name, "--device", "cpu"])
+    assert ei.value.code == 2
+    assert ("long_500k" in capsys.readouterr().out) == (
+        name == "mixtral-8x7b")
+
+
+def test_cell_bytes_moe_and_mla_terms():
+    """``lm_cell_bytes``' MoE prefill working set (the ``G * E * C``
+    dispatch rows at ``d`` and ``3 d_ff_expert``, the token copies), the
+    MLA attention and latent cache, and the dense layers' width."""
+    from repro_torch.configs import deepseek_v2_236b as ds
+    from repro_torch.configs import mixtral_8x7b as mx
+    from repro_torch.launch import train
+
+    mx8 = dataclasses.replace(mx.CONFIG, n_layers=8)
+    p = train.lm_cell_bytes(mx8, "prefill", 1, 32768)
+    assert p["moe"] == (32 * 8 * 320 * (4096 + 3 * 14336)
+                        + 2 * 32768 * 2 * 4096) * 2
+    assert p["layer"] == 32768 * 4 * 4096 * 2          # no dense FFN
+    d = train.lm_cell_bytes(ds.CONFIG, "decode", 4, 32768)
+    assert d["cache"] == 60 * 4 * 32768 * (512 + 64) * 2
+    assert d["cache_f32"] == 4 * 4 * 32768 * (512 + 64)
+    q = train.lm_cell_bytes(ds.CONFIG, "prefill", 1, 32768)
+    assert q["layer"] == 32768 * (5120 + 128 * (2 * 192 + 2 * 128)
+                                  + 3 * 12288) * 2
+    assert q["moe"] == (32 * 160 * 48 * (5120 + 3 * 1536)
+                        + 2 * 32768 * 6 * 5120) * 2
+    assert q["total"] == sum(v for k, v in q.items() if k != "total")
+    lg = train.lm_cell_bytes(dataclasses.replace(mx.CONFIG, n_layers=2),
+                             "decode", 1, 524288)
+    assert lg["cache"] == 2 * 524288 * 2 * 8 * 128 * 2    # 4.3 GB
+
+
+def test_a_cut_to_the_dense_first_layer_runs():
+    """DeepSeek-V2 cut to its dense first layer alone: no MoE layer and an
+    aux of 0.0, one cache layer, decode == forward in float32;
+    its weights are a deeper cut's embedding, head and first layer (the
+    same draws in the same order)."""
+    _, one = _moe_cfgs("deepseek-v2-236b", n_layers=1)
+    _, two = _moe_cfgs("deepseek-v2-236b", n_layers=2)
+    m1, m2 = (transformer.init_lm_params(c, torch.Generator().manual_seed(0),
+                                         "cpu") for c in (one, two))
+    assert len(m1.layers) == 0 and len(m1.dense_layers) == 1
+    n2 = dict(m2.named_parameters())
+    assert all(torch.equal(p, n2[k]) for k, p in m1.named_parameters())
+    toks = torch.from_numpy(_tokens(7, 1, 16))
+    full, aux = transformer.lm_forward(m1, toks)
+    assert aux == 0.0
+    cache = transformer.init_kv_cache(one, 1, 16, device="cpu")
+    assert cache["ckv"].shape[0] == 1 and cache["kr"].shape[0] == 1
+    dec = torch.stack([transformer.lm_decode_step(
+        m1, cache, toks[:, t:t + 1], t + 1)[0] for t in range(16)], dim=1)
+    assert float((dec - full).abs().max() / full.abs().max()) < 2e-5

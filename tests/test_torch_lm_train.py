@@ -210,3 +210,85 @@ def test_flash_attention_refuses_gradient_requiring_inputs_on_the_cpu():
             assert torch.equal(flash_attention(*args),
                                flash_attention(q, k, v))
     assert not flash_attention(q, k, v).requires_grad
+
+
+# ------------------------------------------------------------------ MoE, MLA
+
+from repro.configs import deepseek_v2_236b as j_dv2  # noqa: E402
+from repro.configs import mixtral_8x7b as j_mx  # noqa: E402
+from repro_torch.configs import deepseek_v2_236b as t_dv2  # noqa: E402
+from repro_torch.configs import mixtral_8x7b as t_mx  # noqa: E402
+
+MOE_SMOKES = {"mixtral-8x7b": (j_mx.SMOKE, t_mx.SMOKE),
+              "deepseek-v2-236b": (j_dv2.SMOKE, t_dv2.SMOKE)}
+
+
+def _moe_reference(name, seed=0):
+    jcfg, tcfg = MOE_SMOKES[name]
+    params = _np(jax.jit(lambda k: jax_tf.init_lm_params(k, jcfg))(
+        jax.random.PRNGKey(seed)))
+    return jcfg, tcfg, params, lm_from_jax(params, tcfg, "cpu")
+
+
+@pytest.mark.parametrize("name", list(MOE_SMOKES))
+def test_moe_lm_loss_and_gradients_match_jax(name):
+    """``lm_loss`` (cross-entropy plus 0.01 x the MoE aux) and every
+    gradient, the routers' and the dense layer's included, against
+    ``jax.value_and_grad(lm_loss)``."""
+    jcfg, tcfg, params, model = _moe_reference(name)
+    toks = _tokens(0, 2, 32, jcfg.vocab)
+    (loss, (ce, aux)), grads = jax.jit(jax.value_and_grad(
+        lambda p: jax_tf.lm_loss(p, jnp.asarray(toks), jcfg),
+        has_aux=True))(params)
+    (tloss, (tce, taux)), tgrads = lm_value_and_grad(
+        model, torch.from_numpy(toks))
+    assert abs(float(tloss) - float(loss)) <= LOSS_TOL
+    assert abs(float(tce) - float(ce)) <= LOSS_TOL
+    assert abs(float(taux) - float(aux)) <= LOSS_TOL and float(aux) > 0
+    assert not taux.requires_grad
+    got = lm_grads_to_jax(tgrads)
+    assert jax.tree.structure(got) == jax.tree.structure(_np(grads))
+    errs = jax.tree.map(_max_rel, _np(grads), got)
+    assert max(jax.tree.leaves(errs)) <= GRAD_TOL, errs
+    assert tgrads["layers.0.router"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("name", list(MOE_SMOKES))
+def test_moe_remat_on_equals_off_bitwise(name):
+    """Remat on and off, and two calls: the loss, the aux and every
+    gradient bitwise (no float atomics in the MoE FFN)."""
+    toks = torch.from_numpy(_tokens(1, 2, 48, 256))
+    out = []
+    for remat in (True, False, True):
+        cfg = dataclasses.replace(MOE_SMOKES[name][1], remat=remat)
+        model = init_lm_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        out.append(lm_value_and_grad(model, toks))
+    (a, ga) = out[0]
+    for b, gb in out[1:]:
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1][1], b[1][1])
+        assert ga.keys() == gb.keys()
+        assert all(torch.equal(ga[k], gb[k]) for k in ga)
+
+
+def test_moe_train_steps_match_the_reference_step():
+    """Two steps of ``make_train_step`` on DeepSeek-V2's ``SMOKE`` (MLA,
+    shared experts, a dense first layer) against the reference's train
+    step on a (1, 1) mesh: loss, parameters, ``m`` and ``v``."""
+    jcfg, tcfg, params, model = _moe_reference("deepseek-v2-236b", seed=2)
+    toks = _tokens(3, 2, 32, jcfg.vocab)
+    jstep = jax.jit(jax_steps.make_train_step(
+        jcfg, jax.make_mesh((1, 1), ("data", "model")))[0])
+    jparams, jopt = params, jax_adamw_init(params)
+    step = make_train_step(tcfg, device="cpu")[0]
+    opt = adamw_init(model)
+    for _ in range(2):
+        jparams, jopt, jm = jstep(jparams, jopt, jnp.asarray(toks))
+        _, _, m = step(model, opt, torch.from_numpy(toks))
+        assert abs(float(m["loss"]) - float(jm["loss"])) <= LOSS_TOL
+        assert abs(float(m["aux"]) - float(jm["aux"])) <= LOSS_TOL
+    for want, got in ((jparams, lm_to_numpy(model)),
+                      (jopt["m"], lm_grads_to_jax(opt["m"])),
+                      (jopt["v"], lm_grads_to_jax(opt["v"]))):
+        jax.tree.map(lambda a, b: np.testing.assert_allclose(
+            b, np.asarray(a), rtol=STEP_TOL, atol=STEP_TOL),
+            _np(want), got)

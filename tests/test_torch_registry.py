@@ -50,17 +50,20 @@ def meshes(tmp_path_factory):
 
 
 def test_registry_holds_the_ported_families_in_the_reference_order():
-    assert IDS == ["phi3-medium-14b", "command-r-plus-104b", "deepseek-67b",
+    assert IDS == ["mixtral-8x7b", "deepseek-v2-236b", "phi3-medium-14b",
+                   "command-r-plus-104b", "deepseek-67b",
                    "graphsage-reddit", "pna", "graphcast", "gcn-cora",
                    "two-tower-retrieval", "gcn-igbm-3l"]
-    ref = [n for n in jconfigs.REGISTRY if n in tconfigs.REGISTRY]
-    assert ref == IDS
-    assert tconfigs.ASSIGNED == [n for n in jconfigs.ASSIGNED if n in IDS]
-    want = [(a, s, (c.kind, c.skip))
-            for a, s, c in jconfigs.list_cells() if a in IDS]
+    assert IDS == list(jconfigs.REGISTRY)
+    assert tconfigs.ASSIGNED == jconfigs.ASSIGNED
+    want = [(a, s, (c.kind, c.skip)) for a, s, c in jconfigs.list_cells()]
     got = [(a, s, (c.kind, c.skip)) for a, s, c in tconfigs.list_cells()]
-    assert got == want and len(got) == 32
-    assert len(tconfigs.list_cells(assigned_only=False)) == 36
+    assert got == want and len(got) == 40
+    assert [(a, s, (c.kind, c.skip))
+            for a, s, c in tconfigs.list_cells(assigned_only=False)] == [
+        (a, s, (c.kind, c.skip))
+        for a, s, c in jconfigs.list_cells(assigned_only=False)]
+    assert len(tconfigs.list_cells(assigned_only=False)) == 44
     assert tconfigs.get_arch("pna") is tconfigs.REGISTRY["pna"]
 
 
@@ -83,9 +86,15 @@ def test_arch_spec_matches_reference(name):
         mod = importlib.import_module(
             f"repro.configs.{name.replace('-', '_')}")
         for tc, jc in ((t.config, mod.CONFIG), (t.smoke_config, mod.SMOKE)):
+            assert [f.name for f in dataclasses.fields(tc)] == \
+                [f.name for f in dataclasses.fields(jc)]
             for f in dataclasses.fields(tc):
+                a, b = getattr(tc, f.name), getattr(jc, f.name)
+                if f.name == "moe" and a is not None:
+                    # two packages' MoEConfig classes: field by field
+                    a, b = dataclasses.asdict(a), dataclasses.asdict(b)
                 if f.name != "dtype":
-                    assert getattr(tc, f.name) == getattr(jc, f.name), f.name
+                    assert a == b, f.name
             assert str(tc.dtype).split(".")[-1] == np.dtype(jc.dtype).name
             assert tc.param_count() == jc.param_count()
 
@@ -174,36 +183,43 @@ def _same_args(targs, tshard, jargs, jshard):
         assert pt == _placements(pj.spec)
 
 
-def _lm_param_paths(tree):
-    """The reference's LM leaves keyed by the port's leaf name (``wq``
-    for the stacked ``["layers"]["attn"]["wq"]``, ``embed``, ...)."""
-    from repro_torch.params import LM_LAYER_KEYS, LM_TOP_KEYS
+def _lm_leaf(tree, name):
+    """The reference's LM leaf for the port's parameter ``name``:
+    ``layers.<i>.wq`` is the stacked ``["layers"]["attn"]["wq"]``,
+    ``dense_layers.<i>.w_gate`` the unstacked
+    ``["dense_layers"][i]["ffn"]["w_gate"]``, ``embed`` ``["embed"]``."""
+    from repro_torch.params import lm_leaf_path
 
-    out = {k: tree[k] for k in LM_TOP_KEYS}
-    for attr, path in LM_LAYER_KEYS.items():
+    parts = name.split(".")
+    if parts[0] == "layers":
         leaf = tree["layers"]
-        for key in path:
-            leaf = leaf[key]
-        out[attr] = leaf
-    return out
+    elif parts[0] == "dense_layers":
+        leaf = tree["dense_layers"][int(parts[1])]
+    else:
+        return tree[name]
+    for key in lm_leaf_path(parts[2]):
+        leaf = leaf[key]
+    return leaf
 
 
 def _same_lm_params(model, pshard, jparams, jspecs):
     """The port's parameters and their placements against the reference's
-    leaves and specs: a layer's shape and spec are the stacked leaf's
-    without L."""
-    jp, js = _lm_param_paths(jparams), _lm_param_paths(jspecs)
+    leaves and specs (every reference leaf matched once): a layer's shape
+    and spec are the stacked leaf's without L; a dense layer's are its
+    own."""
     names = [n for n, _ in model.named_parameters()]
     assert list(pshard) == names
+    n_ref = len(jax.tree.leaves(jparams))
+    assert n_ref == len([n for n in names if not n.startswith("layers.")]) \
+        + len({n.split(".", 2)[2] for n in names if n.startswith("layers.")})
     for name, p in model.named_parameters():
-        attr = name.rsplit(".", 1)[-1]
-        stacked = name.startswith("layers.")
-        shape, spec = tuple(jp[attr].shape), tuple(js[attr].spec)
-        if stacked:
+        jp, js = _lm_leaf(jparams, name), _lm_leaf(jspecs, name)
+        shape, spec = tuple(jp.shape), tuple(js.spec)
+        if name.startswith("layers."):
             assert shape[0] == len(model.layers)
             shape, spec = shape[1:], spec[1:]
         assert p.is_meta and tuple(p.shape) == shape, name
-        assert p.dtype == _DTYPES[np.dtype(jp[attr].dtype)], name
+        assert p.dtype == _DTYPES[np.dtype(jp.dtype)], name
         assert pshard[name] == _placements(spec), (name, spec)
 
 
@@ -228,9 +244,8 @@ def test_lm_build_matches_reference(meshes, monkeypatch, name, shape,
     if kind == "train":
         topt, jopt = tb.args[1], jb.args[1]
         tm = topt["m"]
-        jm = _lm_param_paths(jopt["m"])
         for k, t in tm.items():
-            j = jm[k.rsplit(".", 1)[-1]]
+            j = _lm_leaf(jopt["m"], k)
             want = tuple(j.shape)[1:] if k.startswith("layers.") \
                 else tuple(j.shape)
             assert t.is_meta and t.dtype == torch.float32 and \
@@ -249,12 +264,22 @@ def test_lm_build_matches_reference(meshes, monkeypatch, name, shape,
                    jb.in_shardings[1:])
         assert tb.out_shardings is None and jb.out_shardings is None
     else:
-        jcache, jcspec = jb.args[1]["scan"], jb.in_shardings[1]["scan"]
-        assert jb.args[1]["dense"] is None
-        assert list(tb.args[1]) == ["k", "v"]
-        _same_args([tb.args[1]["k"], tb.args[1]["v"]],
-                   [tb.in_shardings[1]["k"], tb.in_shardings[1]["v"]],
-                   [jcache["k"], jcache["v"]], [jcspec["k"], jcspec["v"]])
+        # the port's one (n_layers, ...) cache a name, in LM.blocks()
+        # order, against the reference's {"scan": {name}, "dense": {name}
+        # or None}: the same names, the layers summed, each part placed
+        # as the port's whole
+        cache, jcache = tb.args[1], jb.args[1]
+        parts = [g for g in ("dense", "scan") if jcache[g] is not None]
+        assert list(cache) == list(jcache["scan"])
+        for k, t in cache.items():
+            js = [jcache[g][k] for g in parts]
+            assert t.device.type == "meta"
+            assert t.shape[0] == sum(j.shape[0] for j in js)
+            for g, j in zip(parts, js):
+                assert tuple(t.shape[1:]) == tuple(j.shape[1:])
+                assert t.dtype == _DTYPES[np.dtype(j.dtype)]
+                assert tb.in_shardings[1][k] == _placements(
+                    jb.in_shardings[1][g][k].spec)
         _same_args(tb.args[2:], tb.in_shardings[2:], jb.args[2:],
                    jb.in_shardings[2:])
         assert tb.out_shardings == (None, tb.in_shardings[1])
