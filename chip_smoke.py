@@ -99,8 +99,8 @@ and spill report and checks that the bf16 flash kernel's SASS holds
   unit with edges), ``gather_rows`` once per (run, pass, layer, unit) and
   phase D's ``scatter_add`` count in kernel-fused; none in reference.
 - Phase G, the other families' training at full width: ``sage``,
-  ``gin``, ``pna`` and ``graphcast`` at the same widths on a 131,072-node
-  graph with a 256 MB host cache (cut from D's 262,144 nodes and 512 MB,
+  ``gin``, ``pna`` and ``graphcast`` at the same widths on a 65,536-node
+  graph with a 128 MB host cache (cut from D's 262,144 nodes and 512 MB,
   the same share of the layer-0 table, to keep the script inside its time
   limit), one epoch + AdamW in kernel mode at depth 0 and 2. Checks finite
   loss and gradients, pipelined == serial bitwise, and exact launch
@@ -259,6 +259,19 @@ and spill report and checks that the bf16 flash kernel's SASS holds
   within 1e-4 relative and AdamW's ``m`` within 1e-4 max-relative a leaf;
   and no kernel launched by the distributed steps (they run the layers'
   plain segment ops, as the reference's do).
+- Phase N, the dry run (``launch/dryrun.py``) held against steps the card
+  runs, at most 60 s: (1) ``graphsage-reddit`` x ``ogb_products`` traced
+  for the card on a placeholder ``(1, 1)`` mesh: its predicted argument
+  bytes exactly the bytes of the arguments phase K built, its predicted
+  peak printed beside phase K's; (2) ``mixtral-8x7b`` x ``long_500k`` at
+  2 layers the same way, against one real decode step on the card (the
+  same model and a 524,288-position cache): argument bytes exactly, the
+  trace's FLOPs exactly ``FlopCounterMode``'s count of the real step,
+  the peaks side by side; (3) ``python -m repro_torch.launch.dryrun`` in
+  two processes of their own on the 16 x 16 production mesh of 256
+  placeholder ranks, one GNN cell and one LM cell, each ending ``ok``,
+  their report lines printed; the card's name and power limit beside the
+  roofline's datasheet constants and phase J's measured HBM rate.
 
 Any failed check exits non-zero; no phase's failure is caught. TF32 is off
 for matmuls and cuDNN (float32 means float32 here). The last line is the
@@ -268,6 +281,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -324,11 +338,11 @@ C_CACHE_MB = 128
 E_NODES = 20000
 E_PARTS = 8
 E_CACHE_MB = 64
-# phase G: the same widths on half of D's nodes, the host cache cut with
-# them (a share of the layer-0 table as in D), to keep the script inside
-# its time limit
-G_NODES = 131072
-G_CACHE_MB = 256
+# phase G: the same widths on a quarter of D's nodes, the host cache cut
+# with them (a share of the layer-0 table as in D), to keep the script
+# inside its time limit
+G_NODES = 65536
+G_CACHE_MB = 128
 # phase J: the micro-batch baseline on D's graph with table1_engines'
 # n_micro, held to tests/test_engine_equivalence.py's bounds against the
 # whole-graph oracle; the tier probes' sizes (a 1 GiB copy on and off the
@@ -1873,7 +1887,8 @@ def measure_tiers(dev) -> dict:
     return out
 
 
-def phase_j_tiers(smi: str, dev) -> None:
+def phase_j_tiers(smi: str, dev) -> dict:
+    """The cost model's four tiers measured; returns them (B/s)."""
     from repro_torch.core.costmodel import H100_MACHINE
 
     t = measure_tiers(dev)
@@ -1897,6 +1912,7 @@ def phase_j_tiers(smi: str, dev) -> None:
     print(f"  ssd: the page-cache eviction {took}; the cold read took "
           f"{t['ssd_warm'] / t['ssd']:.2f}x the warm re-read's time",
           flush=True)
+    return t
 
 
 def phase_j_attribution(fused: dict, n: int, e: int) -> None:
@@ -2069,16 +2085,17 @@ def phase_j_example(dev) -> dict:
     return launches
 
 
-def phase_j(g, fused: dict, smi: str, dev) -> dict:
-    """Phase J; returns its launches, summed over its runs."""
+def phase_j(g, fused: dict, smi: str, dev):
+    """Phase J; returns its launches, summed over its runs, and the
+    measured tiers."""
     phase_j_microbatch(g, dev)
-    phase_j_tiers(smi, dev)
+    tiers = phase_j_tiers(smi, dev)
     phase_j_attribution(fused, g.n_nodes, g.n_edges)
     launches = dict(NO_LAUNCHES)
     for run in (phase_j_telemetry, phase_j_ledger, phase_j_example):
         for k, v in run(dev).items():
             launches[k] += v
-    return launches
+    return launches, tiers
 
 
 # ----------------------------------------------------------------- phase H
@@ -3392,6 +3409,10 @@ def phase_m(smi: str, dev) -> dict:
 # the CAGNET step at ogb_products: steps, and step 1's loss against the
 # port's full_graph_loss (relative)
 K_STEPS = 3
+# phase N: the production-mesh cells traced in processes of their own
+N_CELLS = (("graphsage-reddit", "ogb_products"),
+           ("phi3-medium-14b", "prefill_32k"))
+N_SECONDS = 60
 K_LOSS_TOL = 1e-5
 # the R-MAT quadrant law of kronecker_graph
 K_RMAT = (0.57, 0.19, 0.19)
@@ -3486,11 +3507,12 @@ def _k_steps(fn, params, opt, args, dev):
     return losses, walls, torch.cuda.max_memory_allocated(dev) / 1e9
 
 
-def phase_k_cagnet(mesh, smi: str, dev) -> None:
+def phase_k_cagnet(mesh, smi: str, dev) -> dict:
     """``graphsage-reddit`` x ``ogb_products``: the registry's CAGNET
     build (sharded, per-layer remat) at the cell's full size and widths,
     ``K_STEPS`` steps on R-MAT edges made on the card; step 1's loss
-    against ``full_graph_loss`` of the same inputs."""
+    against ``full_graph_loss`` of the same inputs. Returns the bytes of
+    the step's arguments, the peak device GB and the walls (phase N)."""
     import torch
 
     from repro_torch.configs import REGISTRY
@@ -3522,8 +3544,12 @@ def phase_k_cagnet(mesh, smi: str, dev) -> None:
     print(f"  CAGNET inputs on the card (R-MAT edges, features, labels): "
           f"{time.perf_counter() - t0:.3f} s; max in-degree "
           f"{int(deg.max())}", flush=True)
-    losses, walls, peak = _k_steps(b.fn, params, adamw_init(params),
-                                   (x, src, dst, ew, deg, labels), dev)
+    opt = adamw_init(params)
+    data = (x, src, dst, ew, deg, labels)
+    arg_bytes = sum(t.nbytes for t in [*params.state_dict().values(),
+                                       *opt["m"].values(), *opt["v"].values(),
+                                       opt["step"], *data])
+    losses, walls, peak = _k_steps(b.fn, params, opt, data, dev)
     print(f"  CAGNET step (graphsage-reddit x ogb_products, {n} nodes, {e} "
           f"edges, widths {dims}, remat): walls {[round(w, 4) for w in walls]}"
           f" s, losses {losses}, peak device {peak:.2f} GB ({smi})",
@@ -3539,8 +3565,9 @@ def phase_k_cagnet(mesh, smi: str, dev) -> None:
     check(all(math.isfinite(v) for v in losses) and err <= K_LOSS_TOL,
           f"CAGNET step 1's loss {losses[0]!r} within {K_LOSS_TOL} of "
           f"full_graph_loss {want!r} ({err:.3e}); every step finite")
-    del x, src, dst, ew, deg, labels, topo
+    del x, src, dst, ew, deg, labels, topo, data, opt
     torch.cuda.empty_cache()
+    return dict(arg_bytes=arg_bytes, peak_gb=peak, walls=walls)
 
 
 def mfg_tensors(hops, d_feat: int, classes: int, seed: int, dev):
@@ -3800,7 +3827,8 @@ def phase_k(smi: str, dev) -> dict:
         reset_launches()
         phase_k_registry(dev)
         launches = dict(NO_LAUNCHES, **launch_counts())
-        for part in (lambda: phase_k_cagnet(mesh, smi, dev),
+        cagnet = {}
+        for part in (lambda: cagnet.update(phase_k_cagnet(mesh, smi, dev)),
                      lambda: phase_k_mfg_batched(mesh, smi, dev),
                      lambda: phase_k_small(mesh, dev),
                      lambda: phase_k_card_vs_cpu(gloo, dev)):
@@ -3813,7 +3841,149 @@ def phase_k(smi: str, dev) -> dict:
     finally:
         dist.destroy_process_group()
         expandable_segments(False)
-    return launches
+    return launches, cagnet
+
+
+# ----------------------------------------------------------------- phase N
+def dry_trace(arch: str, shape: str, dev, **build_kw):
+    """The dry run's record of one cell on a placeholder ``(1, 1)`` mesh
+    for the card (a ``fake`` group of one rank, torn down after), and its
+    ``Built``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+
+    meshlib.init_placeholder_group(1)
+    try:
+        mesh = meshlib.make_mesh((1, 1), "cuda")
+        built = get_arch(arch).build(shape, mesh, **build_kw)
+        t0 = time.perf_counter()
+        rec = dryrun.trace_built(built, mesh, dev)
+        rec["seconds"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    return built, rec
+
+
+def predicted_gb(rec: dict) -> float:
+    m = rec["memory"]
+    return (m["argument_bytes"] + m["output_bytes"] - m["alias_bytes"]
+            + m["temp_bytes"]) / 1e9
+
+
+def phase_n_cagnet(cagnet: dict, dev) -> None:
+    """N1: the CAGNET cell phase K ran, traced."""
+    _, rec = dry_trace("graphsage-reddit", "ogb_products", dev)
+    got = rec["memory"]["argument_bytes"]
+    check(got == cagnet["arg_bytes"],
+          f"N1 graphsage-reddit x ogb_products on (1, 1): predicted "
+          f"argument bytes {got} == phase K's arguments' "
+          f"{cagnet['arg_bytes']} (trace {rec['seconds']:.1f} s)")
+    peak = predicted_gb(rec)
+    print(f"  N1: predicted peak {peak:.3f} GB vs phase K's "
+          f"{cagnet['peak_gb']:.3f} GB (ratio {peak / cagnet['peak_gb']:.3f}"
+          f"); FLOPs {rec['hlo_flops']:.4g}, bytes {rec['hlo_bytes']:.4g}, "
+          f"roofline {rec['roofline']} vs phase K's step walls "
+          f"{[round(w, 4) for w in cagnet['walls']]} s", flush=True)
+
+
+def phase_n_mixtral(dev) -> None:
+    """N2: ``long_500k`` at 2 layers, traced and run once."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.train import _reset_peak
+    from repro_torch.models.lm.steps import make_decode_step
+    from repro_torch.models.lm.transformer import (
+        init_kv_cache, init_lm_params,
+    )
+
+    built, rec = dry_trace("mixtral-8x7b", "long_500k", dev,
+                           n_layers=M_SMALL_LAYERS)
+    cfg = built.args[0].cfg
+    model = init_lm_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    cache = init_kv_cache(cfg, 1, M_LONG_SEQ, device=dev)
+    token = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    # the build's cache_len is a 0-d int32 tensor; the step takes an int
+    want = sum(p.nbytes for p in model.parameters()) + sum(
+        c.nbytes for c in cache.values()) + token.nbytes + 4
+    got = rec["memory"]["argument_bytes"]
+    check(got == want, f"N2 mixtral-8x7b x long_500k at {M_SMALL_LAYERS} "
+          f"layers on (1, 1): predicted argument bytes {got} == the real "
+          f"step's {want} (trace {rec['seconds']:.1f} s)")
+    step = make_decode_step(cfg, device=dev)
+    _reset_peak(dev)
+    with FlopCounterMode(display=False) as fc:
+        t0 = time.perf_counter()
+        logits, _ = step(model, cache, token, M_LONG_SEQ)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(bool(torch.isfinite(logits).all()), "N2: the real step's logits "
+          "finite")
+    n = fc.get_total_flops()
+    check(rec["hlo_flops"] == n, f"N2: the trace's FLOPs "
+          f"{rec['hlo_flops']:.6g} == FlopCounterMode's count of the real "
+          f"decode step on the card {n:.6g}")
+    print(f"  N2: predicted peak {predicted_gb(rec):.3f} GB vs the real "
+          f"step's {peak:.3f} GB (phase M's 8-step run: 13.12 GB, PERF.md); "
+          f"step wall {wall * 1e3:.2f} ms; roofline {rec['roofline']}",
+          flush=True)
+    del model, cache, logits
+    torch.cuda.empty_cache()
+
+
+def phase_n_production(dev) -> None:
+    """N3: two production-mesh cells, each in a process of its own (the
+    placeholder group of 256 ranks cannot share a process with phase K's
+    nccl group)."""
+    import tempfile
+
+    from repro_torch.launch import dryrun
+
+    out = tempfile.mkdtemp()
+    procs = []
+    for arch, shape in N_CELLS:
+        cmd, env = dryrun.command(arch, shape, "single", "cuda", out)
+        procs.append((arch, shape, subprocess.Popen(
+            cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    for arch, shape, p in procs:
+        text = p.communicate(timeout=N_SECONDS * 3)[0]
+        lines = [ln for ln in text.splitlines() if ln.startswith("[")]
+        for ln in lines:
+            print(f"  N3: {ln}", flush=True)
+        check(p.returncode == 0 and any(ln.startswith("[ok]")
+                                        for ln in lines),
+              f"N3: {arch} x {shape} on the 16x16 placeholder mesh ends ok "
+              f"(exit {p.returncode}{'' if lines else ': ' + text[-2000:]})")
+        with open(os.path.join(out, f"{arch}__{shape}__16x16.json")) as f:
+            rec = json.load(f)
+        print(f"  N3: {arch} x {shape}: per-device peak "
+              f"{predicted_gb(rec):.3f} GB, FLOPs {rec['hlo_flops']:.4g}, "
+              f"collective bytes by dim {rec['collective_bytes_by_dim']}, "
+              f"roofline {rec['roofline']}", flush=True)
+
+
+def phase_n(smi: str, dev, cagnet: dict, tiers: dict) -> None:
+    """Phase N: the dry run held against the steps phases K and M run."""
+    from repro_torch.launch import mesh as meshlib
+
+    print(f"phase N: the dry run; {smi}; roofline constants (H100 SXM5 "
+          f"datasheet): bf16 {meshlib.CHIP_PEAK_FLOPS:.4g} FLOP/s, float32 "
+          f"{meshlib.CHIP_PEAK_FLOPS_F32:.4g} FLOP/s, HBM "
+          f"{meshlib.CHIP_HBM_BW / 1e9:.0f} GB/s (phase J measured "
+          f"{tiers['hbm'] / 1e9:.1f} GB/s), NVLink "
+          f"{meshlib.NVLINK_BW / 1e9:.0f} GB/s, NIC "
+          f"{meshlib.NIC_BW / 1e9:.0f} GB/s", flush=True)
+    t0 = time.perf_counter()
+    phase_n_cagnet(cagnet, dev)
+    phase_n_mixtral(dev)
+    phase_n_production(dev)
+    took = time.perf_counter() - t0
+    check(took <= N_SECONDS, f"phase N within {N_SECONDS} s ({took:.1f} s)")
 
 
 def main() -> int:
@@ -3884,7 +4054,7 @@ def main() -> int:
     families = phase_g(dev)
     print(f"phase G: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    baseline = phase_j(graph, fused_run, smi, dev)
+    baseline, tiers = phase_j(graph, fused_run, smi, dev)
     print(f"phase J: {time.perf_counter() - t0:.1f} s", flush=True)
     del plan, graph, fused_run
     t0 = time.perf_counter()
@@ -3905,8 +4075,11 @@ def main() -> int:
     moe_mla = phase_m(smi, dev)
     print(f"phase M: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    registry = phase_k(smi, dev)
+    registry, cagnet = phase_k(smi, dev)
     print(f"phase K: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_n(smi, dev, cagnet, tiers)
+    print(f"phase N: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"all phases: {time.perf_counter() - t_all:.1f} s", flush=True)
 
     kernels = []

@@ -7,12 +7,19 @@ mesh)`` returns a :class:`Built`: the step function of that cell, its
 abstract arguments (``meta``-device tensors: shapes and dtypes, no memory),
 one ``torch.distributed.tensor`` placement tuple per argument (over the
 mesh's ``("data", "model")`` dims) and ``meta`` (``model_flops``, the
-analytic model FLOPs of one call, ``kind`` and, for GNNs, ``dims``). The
-step takes each argument's local shard on its rank: the part of the
-argument's global shape that its placements give the rank. Where the
-reference sets them, ``out_shardings`` gives the outputs that keep an
+analytic model FLOPs of one call, ``kind`` and, for GNNs, ``dims``). Where
+the reference sets them, ``out_shardings`` gives the outputs that keep an
 input's placements through the step (an LM train step's parameters and
 optimizer state, a decode step's cache), None for the others.
+
+``layout`` says how the step is written. A ``"per_rank"`` step (the GNN
+steps, ``repro_torch.distributed.gnn_parallel``) takes each argument's
+local shard on its rank, the part of the global shape that its placements
+give the rank, and calls its collectives itself. A ``"global"`` step (the
+LM and recsys steps) is written over whole tensors, as the reference's are
+for GSPMD to partition: on one card it takes plain tensors, and spread over
+a mesh it takes ``DTensor``s of the placements, DTensor's propagation and
+the ``constrain`` pins (``models/lm/sharding.py``) standing in for GSPMD's.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ class Built:
     in_shardings: Tuple
     meta: Dict[str, Any]
     out_shardings: Any = None      # outputs that keep an input's placements
+    layout: str = "per_rank"       # per_rank | global: how fn takes its args
 
 
 @dataclasses.dataclass

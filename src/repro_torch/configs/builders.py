@@ -5,7 +5,8 @@ GNN and recsys.
 A build takes the cell's shape name and a ``("data", "model")``
 :class:`~torch.distributed.device_mesh.DeviceMesh`
 (``repro_torch.launch.mesh.make_host_mesh``) and returns a
-:class:`~repro_torch.configs.base.Built`: the per-rank step, its abstract
+:class:`~repro_torch.configs.base.Built`: the step (per-rank for a GNN,
+over whole tensors for an LM or recsys cell: ``Built.layout``), its abstract
 arguments on the ``meta`` device (parameters and optimizer state
 included) and one placement tuple per argument (a dict of them for a
 parameter tree whose leaves differ).
@@ -88,7 +89,8 @@ def make_lm_arch(cfg: LMConfig, describe: str,
             active_params=c.active_param_count(),
             kind=kind,
         )
-        return Built(fn, args, shard, meta, out_shardings=out_sh)
+        return Built(fn, args, shard, meta, out_shardings=out_sh,
+                     layout="global")
 
     def smoke(device=None) -> dict:
         """``lm_loss`` and its gradients at ``smoke_cfg`` on ``device``
@@ -338,7 +340,7 @@ def make_recsys_arch(cfg: TwoTowerConfig, describe: str,
                      placements(mesh, (data_axes(mesh), None)))
             flops = recsys_model_flops(cfg, "retrieval", batch, nc)
         meta = dict(model_flops=flops, kind=s["kind"])
-        return Built(fn, args, shard, meta)
+        return Built(fn, args, shard, meta, layout="global")
 
     def smoke(device=None) -> dict:
         """One in-batch softmax loss and its gradients at ``smoke_cfg``

@@ -27,6 +27,9 @@ from dataclasses import dataclass
 from typing import Dict
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map, register_sharding
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.embedding_bag import ref
@@ -219,13 +222,25 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     dev = table.device
     _check("table", table, torch.float32, dev)
     _check("ids", ids, torch.int32, dev)
+    return torch.ops.repro_torch.embedding_bag_fwd(table, ids, mode == "mean")
+
+
+# The launch as an operator of its own: a fake tensor (the dry run's trace)
+# gets the output's shape from the fake implementation and launches nothing,
+# the FLOP counter reads the formula below and a DTensor the sharding rule.
+
+@torch.library.custom_op("repro_torch::embedding_bag_fwd", mutates_args=())
+def _embedding_bag_fwd(table: torch.Tensor, ids: torch.Tensor,
+                       mean: bool) -> torch.Tensor:
+    (V, D), (n_bags, bag_size) = table.shape, ids.shape
+    dev = table.device
     out = torch.empty((n_bags, D), dtype=table.dtype, device=dev)
     plan = launch_plan(n_bags, bag_size, D, table.data_ptr() % 16 == 0
                        and out.data_ptr() % 16 == 0, sms=_sms(dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().embedding_bag_f32(
         table.data_ptr(), ids.data_ptr(), out.data_ptr(), V, n_bags,
-        bag_size, D, int(mode == "mean"), int(plan.vec), plan.tile,
+        bag_size, D, int(mean), int(plan.vec), plan.tile,
         plan.chunk, plan.slab, plan.parts, plan.stage, plan.blocks, plan.grid,
         plan.smem, stream,
     )
@@ -234,6 +249,26 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                            f"{err} ({plan})")
     LAUNCHES["embedding_bag"] += 1
     return out
+
+
+@_embedding_bag_fwd.register_fake
+def _(table, ids, mean):
+    return table.new_empty((ids.shape[0], table.shape[1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.embedding_bag_fwd)
+def _bag_flops(table_shape, ids_shape, mean, *args, out_shape=None,
+               **kwargs) -> int:
+    """One add per looked-up element."""
+    return ids_shape[0] * ids_shape[1] * table_shape[1]
+
+
+@register_sharding(torch.ops.repro_torch.embedding_bag_fwd.default)
+def _bag_sharding(table, ids, mean):
+    """The bags shard (the table whole), or the columns (the ids whole)."""
+    return [([Replicate()], [Replicate(), Replicate(), None]),
+            ([Shard(0)], [Replicate(), Shard(0), None]),
+            ([Shard(1)], [Shard(1), Replicate(), None])]
 
 
 class EmbeddingBag(torch.autograd.Function):
@@ -263,6 +298,25 @@ class EmbeddingBag(torch.autograd.Function):
     def backward(ctx, d_out: torch.Tensor):
         (ids,) = ctx.saved_tensors
         scatter = scatter_add_ if ctx.kernels == "kernel" else scatter_add_ref
-        grad = ref.embedding_bag_backward_ref(d_out, ids, ctx.V, ctx.mode,
-                                              scatter)
+
+        def backward(d_out, ids):
+            return ref.embedding_bag_backward_ref(d_out, ids, ctx.V,
+                                                  ctx.mode, scatter)
+
+        if not isinstance(d_out, DTensor):
+            return backward(d_out, ids), None, None, None
+        # over a mesh, rank by rank: a split of the bags gives each rank a
+        # partial sum of the table's gradient, a split of the columns its
+        # columns of it
+        d_pl, i_pl, g_pl = [], [], []
+        for p in d_out.placements:
+            col = isinstance(p, Shard) and p.dim == 1
+            row = isinstance(p, Shard) and p.dim == 0
+            d_pl.append(p if row or col else Replicate())
+            i_pl.append(Shard(0) if row else Replicate())
+            g_pl.append(Partial() if row else d_pl[-1])
+        grad = local_map(backward, out_placements=g_pl,
+                         in_placements=(tuple(d_pl), tuple(i_pl)),
+                         device_mesh=d_out.device_mesh,
+                         redistribute_inputs=True)(d_out, ids)
         return grad, None, None, None

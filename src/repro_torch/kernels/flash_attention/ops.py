@@ -24,7 +24,11 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, Optional
 
+import numpy as np
 import torch
+from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
@@ -135,14 +139,58 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"kernel")
     # a window wider than every distance is no window
     w = -1 if window is None or window > Sq + Skv else int(window)
+    return torch.ops.repro_torch.flash_attention_fwd(q, k, v, bool(causal), w)
+
+
+# The launch as an operator of its own: a fake tensor (the dry run's trace)
+# gets the output's shape from the fake implementation and launches nothing,
+# the FLOP counter reads the formula below and a DTensor the sharding rule.
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool, window: int) -> torch.Tensor:
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        DTYPES[q.dtype], B, Sq, Skv, Hq, Hkv, D, int(bool(causal)), w, stream,
+        DTYPES[q.dtype], B, Sq, Skv, Hq, Hkv, D, int(causal), window, stream,
     )
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: cudaError {err}")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+@_flash_attention_fwd.register_fake
+def _(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+def attended_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs a call attends: query ``i`` sees keys ``j <=
+    i`` when ``causal``, and ``i - j < window`` when ``window > 0``."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(Sq,
+                                                                  np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flash_flops(q_shape, k_shape, v_shape, causal, window, *args,
+                 out_shape=None, **kwargs) -> int:
+    """Two products a pair and head: ``q k^T`` (2 D) and ``p v`` (2 D)."""
+    B, Sq, Hq, D = q_shape
+    return B * Hq * attended_pairs(Sq, k_shape[1], causal, window) * 4 * D
+
+
+@register_sharding(torch.ops.repro_torch.flash_attention_fwd.default)
+def _flash_sharding(q, k, v, causal, window):
+    """Batch and heads shard (a query head and its KV head on one rank),
+    the sequence stays whole."""
+    return [([Replicate()], [Replicate()] * 3 + [None, None]),
+            ([Shard(0)], [Shard(0)] * 3 + [None, None]),
+            ([Shard(2)], [Shard(2)] * 3 + [None, None])]

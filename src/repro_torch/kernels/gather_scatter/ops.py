@@ -215,10 +215,25 @@ def scatter_add_(base: torch.Tensor, rows: torch.Tensor,
     _check("base", base, torch.float32, 2, dev)
     _check("rows", rows, torch.int32, 1, dev)
     _check("values", values, torch.float32, 2, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    torch.ops.repro_torch.scatter_add_(base, rows, values)
+    return base
+
+
+# The launch as an operator of its own, so that a fake tensor (the dry run's
+# trace) gets through it without a launch.
+
+@torch.library.custom_op("repro_torch::scatter_add_", mutates_args=("base",))
+def _scatter_add_launch(base: torch.Tensor, rows: torch.Tensor,
+                        values: torch.Tensor) -> None:
+    stream = torch.cuda.current_stream(base.device).cuda_stream
     err = _lib().scatter_add_f32(
-        base.data_ptr(), rows.data_ptr(), values.data_ptr(), R, D, stream,
+        base.data_ptr(), rows.data_ptr(), values.data_ptr(), rows.shape[0],
+        base.shape[1], stream,
     )
     _raise_on(err, "scatter_add")
     LAUNCHES["scatter_add"] += 1
-    return base
+
+
+@_scatter_add_launch.register_fake
+def _(base, rows, values):
+    return None

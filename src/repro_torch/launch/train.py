@@ -391,6 +391,28 @@ def _lm_train(model, batch: int, seq: int, steps: int = LM_TRAIN_STEPS,
     return out
 
 
+def _dry_run(args, arch) -> int:
+    """A GNN id's full configuration: its cell's dry run on the 16 x 16
+    production mesh (``launch/dryrun.py``, a process of its own), as the
+    reference's launcher hands over; returns the dry run's exit code."""
+    import subprocess
+
+    from repro_torch.launch import dryrun
+
+    shape = args.shape or arch.runnable_shapes()[0]
+    print(f"{args.arch}: the full configuration runs on the production "
+          f"mesh; its dry run ({shape}, 16x16) instead (--smoke or "
+          f"--offload for a run here)", flush=True)
+    cmd, env = dryrun.command(args.arch, shape, "single", args.device)
+    r = subprocess.run(cmd, env=env, stdout=subprocess.PIPE,
+                       stderr=subprocess.STDOUT, text=True)
+    print("\n".join(line for line in r.stdout.splitlines()
+                    if line.startswith("[")))
+    if r.returncode:
+        print(r.stdout[-4000:])
+    return r.returncode
+
+
 def _lm_main(args, arch) -> int:
     """The LM branch of :func:`main`; returns the exit status."""
     import dataclasses
@@ -817,10 +839,7 @@ def main(argv: Optional[Sequence[str]] = None):
         print(f"{args.arch} smoke: {r}")
         sys.exit(0 if r["finite"] and r["grad_norm"] > 0 else 1)
     if not args.offload:
-        print(f"{args.arch}: only --offload (the SSO engine) and --smoke "
-              f"run here; the full configuration's dry run comes with its "
-              f"slice of the port (launch/dryrun.py)")
-        sys.exit(2)
+        sys.exit(_dry_run(args, arch))
     model = arch.config.model
     r = _train_smoke(
         model, args.pipeline_depth, args.gather_workers,

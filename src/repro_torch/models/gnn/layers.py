@@ -31,6 +31,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -68,6 +69,20 @@ class LocalTopo:
         return self.src.device
 
 
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """The reference's pin of edge / node rows over the batch dims before
+    a segment sum: on a ``DTensor`` the rows split over ``DB``, on a plain
+    tensor (every step here: the GNN steps work on local shards) ``x``
+    itself."""
+    if not isinstance(x, DTensor):
+        return x
+    # here, not at the top: models.lm imports the kernels, which import
+    # this module
+    from repro_torch.models.lm.sharding import DB, constrain
+
+    return constrain(x, DB, *([None] * (x.dim() - 1)))
+
+
 def seg_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
     """``out[seg[i]] += x[i]`` over zeros — the counterpart of the
     reference's ``jax.ops.segment_sum``.
@@ -80,6 +95,7 @@ def seg_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
     from a sequential ``np.add.at`` by an ulp). On the CPU, ``index_add_``
     is the sequential loop (while the CPU ``index_put_`` accumulate is the
     parallel one)."""
+    x = _rows(x)
     out = x.new_zeros((n,) + tuple(x.shape[1:]))
     if x.is_cuda:
         out.index_put_((seg.long(),), x, accumulate=True)

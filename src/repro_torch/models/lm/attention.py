@@ -21,10 +21,14 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.lm.layers import apply_rope, out_proj, proj, rmsnorm
+from repro_torch.models.lm.sharding import (
+    head_placements, on_shards, seq_dims, write_position,
+)
 
 NEG_INF = -1e30
 KERNEL_MODES = ("kernel", "reference")
@@ -80,6 +84,15 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q ``(B, Sq, Hq, D)``; k, v ``(B, Skv, Hkv, Dv)``; ``Hq % Hkv == 0``;
     ``Sq`` and ``Skv`` multiples of their (clipped) chunks. Returns
     ``(B, Sq, Hq, Dv)`` in q's dtype."""
+    if isinstance(q, DTensor):
+        # each rank attends its batch and head shard, the sequence whole
+        pl = head_placements(q, v.shape[2])
+        return on_shards(
+            lambda q, k, v: chunked_attention(
+                q, k, v, causal=causal, window=window, q_chunk=q_chunk,
+                kv_chunk=kv_chunk, q_offset=q_offset,
+                kv_checkpoint=kv_checkpoint),
+            (q, k, v), (pl, pl, pl), pl)
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, Dv = v.shape
     G = Hq // Hkv
@@ -125,6 +138,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     softmax in float32 over the whole allocated cache, the positions at
     ``cache_len`` and past masked, as the reference does: each layer's
     cache is read as a float32 copy."""
+    if isinstance(k_cache, DTensor):
+        return _decode_on_shards(q, k_cache, v_cache, cache_len, window)
     B, _, Hq, D = q.shape
     _, S, Hkv, Dv = v_cache.shape
     G = Hq // Hkv
@@ -142,6 +157,26 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(B, 1, Hq, Dv).to(q.dtype)
 
 
+def _decode_on_shards(q, k_cache, v_cache, cache_len: int, window):
+    """:func:`decode_attention` over ``DTensor`` caches, rank by rank: the
+    batch split as the caches', and where their sequence is split,
+    flash-decoding over those dims (``distributed.collectives``: partial
+    softmax statistics a shard, combined by all-reduces)."""
+    from repro_torch.distributed.collectives import make_split_kv_decode
+
+    mesh, seq = k_cache.device_mesh, seq_dims(k_cache)
+    pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+               for p in k_cache.placements)
+    if seq:
+        fn = make_split_kv_decode(mesh, seq, window)
+    else:
+        def fn(q, kc, vc, n):
+            return decode_attention(q, kc, vc, n, window=window)
+    return on_shards(lambda q, kc, vc: fn(q, kc, vc, cache_len),
+                     (q, k_cache, v_cache),
+                     (pl, k_cache.placements, v_cache.placements), pl)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               q_chunk: int = 512, kv_chunk: int = 1024,
@@ -152,6 +187,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     under grad mode); ``"reference"`` calls :func:`chunked_attention` (an
     explicit request, never a fallback)."""
     if kernels == "kernel":
+        if isinstance(q, DTensor):
+            # the kernel's sharding rule: batch and heads (where the KV
+            # heads divide), the sequence whole; the plain version on the
+            # CPU, rank by rank
+            pl = head_placements(q, k.shape[2])
+            if not q.is_cuda:
+                return on_shards(lambda q, k, v: flash_attention(
+                    q, k, v, causal=causal, window=window), (q, k, v),
+                    (pl, pl, pl), pl)
+            q, k, v = (t.redistribute(t.device_mesh, pl) for t in (q, k, v))
         return flash_attention(q, k, v, causal=causal, window=window)
     if kernels == "reference":
         return chunked_attention(q, k, v, causal=causal, window=window,
@@ -222,8 +267,8 @@ def mla_decode_attention(p, x: torch.Tensor, ckv_cache: torch.Tensor,
     positions = torch.full((B, 1), pos, device=x.device)
     qn, qr = _mla_queries(p, x, positions, cfg)
     ckv_new, kr_new = _mla_latent(p, x, positions, cfg)
-    ckv_cache[:, pos] = ckv_new[:, 0].to(ckv_cache.dtype)
-    kr_cache[:, pos] = kr_new[:, 0].to(kr_cache.dtype)
+    write_position(ckv_cache, pos, ckv_new[:, 0])
+    write_position(kr_cache, pos, kr_new[:, 0])
     qa = torch.einsum("bshe,che->bshc", qn, p.w_uk)      # (B, 1, H, kv_lora)
     ckv32 = ckv_cache.float()
     s_c = torch.einsum("bshc,btc->bhst", qa.float(), ckv32)

@@ -10,11 +10,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.lm.sharding import unshard_dims
+
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * scale`` over the last axis, in float32
-    inside, cast back to ``x``'s dtype."""
+    inside, cast back to ``x``'s dtype (over a mesh, the last axis
+    gathered first: a partial mean left to DTensor comes back split over
+    the sequence)."""
+    x = unshard_dims(x, (-1,))
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
@@ -45,12 +50,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhe->bshe", h, w)`` as one matrix product."""
     d, H, E = w.shape
+    w = unshard_dims(w, (2,))
     return torch.matmul(h, w.reshape(d, H * E)).view(*h.shape[:-1], H, E)
 
 
 def out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """``einsum("bshe,hed->bsd", o, wo)`` as one matrix product."""
     H, E, d = wo.shape
+    o, wo = unshard_dims(o, (-1,)), unshard_dims(wo, (1,))
     return torch.matmul(o.reshape(*o.shape[:-2], H * E), wo.reshape(H * E, d))
 
 

@@ -17,19 +17,27 @@ land in one overflow row that is discarded), the token copies come from an
 results are summed over a ``(T, K, d)`` view. Two calls on the same
 inputs, and their gradients, are bitwise equal.
 
-The reference's ``REPRO_MOE_CONSTRAIN`` sharding hints have no
-counterpart: on one card they are the identity.
+Over ``DTensor``s (the dry run) the FFN runs rank by rank: each rank
+routes its own token groups (``groups`` divided by the ranks that split
+the tokens, so every group is the one-card group) through every expert's
+gathered weights (the shared experts' too), the ZeRO-3 layout; the reference's
+``REPRO_MOE_CONSTRAIN=1`` pins the tokens' split over the batch dims
+first. On one card both are the identity.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.lm.layers import swiglu
+from repro_torch.models.lm.sharding import DB, constrain, on_shards
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +101,8 @@ def moe_ffn(p, x: torch.Tensor, mcfg: MoEConfig,
     routes each token to those experts in that order instead of its top
     k, its gates the softmax of its router logits there: two computations
     of the same tokens held on the same routes."""
+    if isinstance(x, DTensor):
+        return _moe_on_shards(p, x, mcfg, experts)
     T, d = x.shape
     E, K = mcfg.n_experts, mcfg.top_k
     G, C = moe_shape(mcfg, T)
@@ -147,3 +157,40 @@ def moe_ffn(p, x: torch.Tensor, mcfg: MoEConfig,
         y = y + swiglu(x, p.shared_gate, p.shared_up, p.shared_down)
     return y, aux
 
+
+
+def _moe_on_shards(p, x, mcfg: MoEConfig, experts=None):
+    """:func:`moe_ffn` over a ``DTensor`` ``x``, rank by rank (see the
+    module's docstring), the shared experts too. The aux loss is each
+    rank's mean over its groups, averaged over the ranks."""
+    pin = os.environ.get("REPRO_MOE_CONSTRAIN", "0") == "1"
+    if pin:
+        x = constrain(x, DB, None)
+    mesh, T = x.device_mesh, x.shape[0]
+    G, _ = moe_shape(mcfg, T)
+    split = [i for i, q in enumerate(x.placements)
+             if isinstance(q, Shard) and q.dim == 0]
+    n = 1
+    for i in split:
+        n *= mesh.size(i)
+    if G % n:
+        split, n = [], 1
+    xpl = tuple(Shard(0) if i in split else Replicate()
+                for i in range(mesh.ndim))
+    apl = tuple(Partial("avg") if i in split else Replicate()
+                for i in range(mesh.ndim))
+    rep = tuple(Replicate() for _ in range(mesh.ndim))
+    local = dataclasses.replace(mcfg, groups=G // n)
+    names = tuple(moe_param_shapes(x.shape[1], mcfg))
+
+    def routed(xl, *ws):
+        return moe_ffn(SimpleNamespace(**dict(zip(names, ws))), xl, local,
+                       experts=None if experts is None else ws[-1])
+
+    ws = [getattr(p, k) for k in names]
+    args = (x, *ws) + (() if experts is None else (experts,))
+    y, aux = on_shards(routed, args,
+                       (xpl,) + (rep,) * (len(args) - 1), (xpl, apl))
+    if pin:
+        y = constrain(y, DB, None)
+    return y, aux

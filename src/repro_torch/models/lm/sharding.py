@@ -15,17 +15,24 @@ each layer's leaves along a leading L axis and never shards it; the port
 holds one module a layer, so :func:`param_specs` gives ``layers.<i>.<name>``
 the reference's spec of the stacked leaf with its L entry dropped.
 
-The reference's ``constrain`` (a GSPMD hint pinning an activation's
-sharding inside a jitted step) has no counterpart: the port's steps run
-eagerly on each rank's local shard, and on one card it is the identity.
-``param_shardings`` (``NamedSharding``s) waits for the dry run.
+:func:`param_shardings` is the reference's ``NamedSharding`` tree: ``{name:
+(mesh, placements)}``; :func:`distribute_params` swaps a model's
+parameters for ``DTensor``s of those placements, as the dry run gives an
+LM or recsys step its arguments. :func:`constrain` is the reference's
+activation pin: on a ``DTensor`` it redistributes to the named dims (the
+one way DTensor's propagation, standing in for GSPMD's, is kept in ZeRO-3
+mode: weights gathered, the batch kept split); on a plain tensor, the
+eager path on one card, it returns its argument itself.
 """
 from __future__ import annotations
 
 import os
 from typing import Dict, Optional, Tuple
 
-from torch.distributed.tensor import Replicate, Shard
+import torch
+from torch.distributed.tensor import (
+    DTensor, Placement, Replicate, Shard, distribute_tensor,
+)
 
 from repro_torch.launch.mesh import axis_size, data_axes
 
@@ -159,6 +166,175 @@ def param_specs(model, mesh, megatron_rules: Optional[bool] = None
                          mesh, stacked, megatron_rules)
         out[key] = placements(mesh, spec[1:] if stacked else spec)
     return out
+
+
+def param_shardings(model, mesh, megatron_rules: Optional[bool] = None
+                    ) -> Dict[str, tuple]:
+    """``{parameter name: (mesh, placements)}``: :func:`param_specs` with its
+    mesh, the counterpart of the reference's ``NamedSharding`` tree."""
+    return {k: (mesh, pl) for k, pl in
+            param_specs(model, mesh, megatron_rules).items()}
+
+
+def distribute_params(model, mesh, shardings: Optional[Dict] = None):
+    """Replace each of ``model``'s parameters, in place, by
+    ``distribute_tensor`` of its placements (``shardings``: a ``{name:
+    placements}`` dict, :func:`param_specs` by default), keeping its
+    ``requires_grad``. Returns ``model``."""
+    shardings = param_specs(model, mesh) if shardings is None else shardings
+    for key, p in list(model.named_parameters()):
+        owner, _, leaf = key.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        d = distribute_tensor(p.detach(), mesh, shardings[key])
+        setattr(mod, leaf,
+                torch.nn.Parameter(d, requires_grad=p.requires_grad))
+    return model
+
+
+DB = ("pod", "data")  # batch dims
+
+
+def constrain_spec(shape, mesh, names) -> Spec:
+    """The reference's rule for one pin: ``names`` per dim (None, a dim
+    name or a tuple of them); a dim that does not divide the named dims'
+    size, or is smaller, is left unsharded, and a name the mesh lacks is
+    dropped."""
+    sizes = _sizes(mesh)
+    spec = []
+    for dim, nm in zip(shape, names):
+        cand = () if nm is None else (nm if isinstance(nm, tuple) else (nm,))
+        axes = tuple(a for a in cand if a in sizes)
+        n = 1
+        for a in axes:
+            n *= sizes[a]
+        spec.append((axes if len(axes) > 1 else axes[0])
+                    if axes and dim % n == 0 and dim >= n else None)
+    return tuple(spec) + (None,) * (len(shape) - len(spec))
+
+
+def constrain(x, *names):
+    """Pin an activation's placements (the reference's ``constrain``).
+    A ``DTensor`` is redistributed over its mesh to :func:`constrain_spec`
+    of its global shape (a partial sum is reduced on the way); any other
+    tensor comes back as it is, the same object, so the eager path on one
+    card is unchanged bitwise."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    want = placements(mesh, constrain_spec(x.shape, mesh, names))
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
+def unshard_dims(x, dims):
+    """A ``DTensor`` with its ``Shard`` placements on ``dims`` made
+    ``Replicate`` (an all-gather), for an op DTensor cannot run well on
+    that split (a reshape merging a split dim into the one before it, a
+    normalisation over it); any other tensor comes back as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    dims = {d % x.dim() for d in dims}
+    want = tuple(Replicate() if isinstance(p, Shard) and p.dim in dims else p
+                 for p in x.placements)
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def rows_of(x, outer: int):
+    """``x`` ``(outer * k, ...)`` ready for a view to ``(outer, k * ...)``:
+    a ``DTensor`` keeps its split of dim 0 over the mesh dims whose sizes'
+    product still divides ``outer`` and is gathered everywhere else; any
+    other tensor comes back as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh, want, n = x.device_mesh, [], 1
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == 0 and \
+                outer % (n * mesh.size(i)) == 0:
+            n *= mesh.size(i)
+            want.append(p)
+        else:
+            want.append(Replicate())
+    if tuple(want) == tuple(x.placements):
+        return x
+    return x.redistribute(mesh, tuple(want))
+
+
+def head_placements(q, n_kv_heads: int) -> tuple:
+    """Attention's per-rank split of ``q`` ``(B, S, H, D)`` (a ``DTensor``):
+    each mesh dim that splits q's batch keeps it, each that splits its
+    heads keeps them while ``n_kv_heads`` still divides, the sequence and
+    the rest are whole."""
+    mesh, out, n = q.device_mesh, [], 1
+    for i, p in enumerate(q.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            out.append(Shard(0))
+        elif isinstance(p, Shard) and p.dim == 2 and \
+                n_kv_heads % (n * mesh.size(i)) == 0:
+            n *= mesh.size(i)
+            out.append(Shard(2))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def on_shards(fn, args, in_placements, out_placements,
+              grad_placements=None):
+    """``fn(*args)`` run on each rank's local shards (``local_map``):
+    ``args`` redistributed to ``in_placements`` (one tuple each, None for a
+    non-tensor), the outputs taken as ``out_placements``' DTensors, the
+    inputs' gradients as ``grad_placements``' (``in_placements`` by
+    default; a replicated input read by a split computation gets a partial
+    sum). Where no argument is a ``DTensor`` it is ``fn(*args)``."""
+    if not any(isinstance(a, DTensor) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = next(a for a in args if isinstance(a, DTensor)).device_mesh
+    if all(isinstance(p, Placement) for p in out_placements):
+        out_placements = list(out_placements)      # one output
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=tuple(in_placements),
+                     in_grad_placements=(None if grad_placements is None
+                                         else tuple(grad_placements)),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def seq_dims(cache) -> tuple:
+    """The mesh dims that split a ``(B, S, ...)`` cache's sequence (dim 1),
+    in mesh order; none for a plain tensor."""
+    if not isinstance(cache, DTensor):
+        return ()
+    return tuple(a for a, p in zip(cache.device_mesh.mesh_dim_names,
+                                   cache.placements)
+                 if isinstance(p, Shard) and p.dim == 1)
+
+
+def write_position(cache, pos: int, row) -> None:
+    """``cache[:, pos] = row`` (``row`` ``(B, ...)``, cast to the cache's
+    dtype). On a ``DTensor`` cache the rank whose sequence shard holds
+    ``pos`` writes it into its local shard, the batch split as the
+    cache's."""
+    if not isinstance(cache, DTensor):
+        cache[:, pos] = row.to(cache.dtype)
+        return
+    mesh = cache.device_mesh
+    pl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+               for p in cache.placements)
+    loc = cache.to_local()
+    # this rank's first position: its place along the split dims, the
+    # first major
+    off = 0
+    for a in seq_dims(cache):
+        off = off * mesh.size(mesh.mesh_dim_names.index(a)) + \
+            mesh.get_local_rank(a)
+    off *= loc.shape[1]
+    if off <= pos < off + loc.shape[1]:
+        r = row.redistribute(mesh, pl).to_local() if isinstance(
+            row, DTensor) else row
+        loc[:, pos - off] = r.to(loc.dtype)
 
 
 def batch_spec(batch: int, mesh) -> Spec:

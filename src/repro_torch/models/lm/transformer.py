@@ -36,6 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
@@ -43,9 +44,12 @@ from repro_torch.models.lm.attention import (
     attention, decode_attention, mla_decode_attention, mla_train_attention,
 )
 from repro_torch.models.lm.layers import (
-    apply_rope, init_dense, out_proj, proj, rmsnorm, swiglu,
+    apply_rope, init_dense, out_proj, proj, rmsnorm,
 )
 from repro_torch.models.lm.moe import MoEConfig, moe_ffn, moe_param_shapes
+from repro_torch.models.lm.sharding import (
+    DB, constrain, on_shards, rows_of, write_position,
+)
 
 ATTN_TYPES = ("gqa", "mla")
 
@@ -282,12 +286,14 @@ def _attn_block(blk: LMBlock, x: torch.Tensor, positions: torch.Tensor,
     if cfg.attn_type == "mla":
         return mla_train_attention(blk, h, positions, cfg,
                                    q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    q = apply_rope(proj(h, blk.wq), positions, cfg.rope_theta)
-    k = apply_rope(proj(h, blk.wk), positions, cfg.rope_theta)
-    v = proj(h, blk.wv)
+    q = constrain(proj(h, blk.wq), DB, None, "model")
+    k = constrain(proj(h, blk.wk), DB, None, "model")
+    v = constrain(proj(h, blk.wv), DB, None, "model")
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
     o = attention(q, k, v, causal=True, window=cfg.window,
                   q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk, kernels=kernels)
-    return out_proj(o, blk.wo)
+    return constrain(out_proj(o, blk.wo), DB, None, None)
 
 
 def _ffn_block(blk: LMBlock, x: torch.Tensor, cfg: LMConfig
@@ -297,23 +303,42 @@ def _ffn_block(blk: LMBlock, x: torch.Tensor, cfg: LMConfig
     h = rmsnorm(x, blk.ffn_norm)
     if blk.is_moe:
         y, aux = moe_ffn(blk, h.reshape(-1, h.shape[-1]), cfg.moe)
-        return y.view(h.shape), aux
-    return swiglu(h, blk.w_gate, blk.w_up, blk.w_down), None
+        y = rows_of(y, h.shape[0])      # a mesh's split of the tokens
+        return constrain(y.view(h.shape), DB, None, None), aux
+    # swiglu's products, each pinned as the reference pins them
+    g = constrain(torch.matmul(h, blk.w_gate), DB, None, "model")
+    u = constrain(torch.matmul(h, blk.w_up), DB, None, "model")
+    y = torch.matmul(F.silu(g) * u, blk.w_down)
+    return constrain(y, DB, None, None), None
 
 
 def _layer_fwd(blk: LMBlock, x: torch.Tensor, positions: torch.Tensor,
                cfg: LMConfig, kernels: str
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    x = constrain(x, DB, None, None)
     x = x + _attn_block(blk, x, positions, cfg, kernels)
     y, aux = _ffn_block(blk, x, cfg)
-    return x + y, aux
+    return constrain(x + y, DB, None, None), aux
 
 
 def _embed(model: LM, tokens: torch.Tensor) -> torch.Tensor:
     if tokens.device != model.device:
         raise ValueError(f"tokens are on {tokens.device}, the model on "
                          f"{model.device}")
-    return model.embed[tokens.long()].to(model.cfg.dtype)
+
+    def lookup(embed, tokens):
+        return embed[tokens.long()].to(model.cfg.dtype)
+
+    if not isinstance(model.embed, DTensor):
+        return lookup(model.embed, tokens)
+    # over a mesh, ZeRO-3: the table gathered, each rank looks up its
+    # batch split, and the table's gradient is a partial sum
+    split = [isinstance(p, Shard) and p.dim == 0 for p in tokens.placements]
+    tok = tuple(Shard(0) if s else Replicate() for s in split)
+    rep = tuple(Replicate() for _ in split)
+    part = tuple(Partial() if s else Replicate() for s in split)
+    return on_shards(lookup, (model.embed, tokens), (rep, tok), tok,
+                     (part, tok))
 
 
 def _lm_body(model: LM, tokens: torch.Tensor, kernels: str
@@ -351,7 +376,8 @@ def lm_logits(model: LM, x: torch.Tensor) -> torch.Tensor:
     """The final norm and the head, in float32: ``(..., d)`` -> ``(..., V)``.
     Both act row by row, so they may be given any subset of positions."""
     x = rmsnorm(x, model.final_norm)
-    return torch.matmul(x.float(), model.lm_head.float())
+    logits = torch.matmul(x.float(), model.lm_head.float())
+    return constrain(logits, DB, *([None] * (logits.dim() - 2)), "model")
 
 
 def lm_forward(model: LM, tokens: torch.Tensor,
@@ -376,9 +402,22 @@ def lm_loss(model: LM, tokens: torch.Tensor, aux_weight: float = 0.01
     and with ``cfg.remat`` each layer is checkpointed too."""
     logits, aux = lm_forward(model, tokens, kernels="reference")
     tgt = tokens[:, 1:].long()
-    lp = F.log_softmax(logits[:, :-1], dim=-1)
-    ll = torch.gather(lp, -1, tgt[..., None])
-    loss = -ll.mean()
+
+    def nll(logits, tgt):
+        lp = F.log_softmax(logits[:, :-1], dim=-1)
+        ll = torch.gather(lp, -1, tgt[..., None])
+        return -ll.mean()
+
+    if isinstance(tgt, DTensor):
+        # over a mesh, rank by rank over its batch split (the vocabulary
+        # whole), the mean the ranks' means: DTensor's gather would make
+        # its gradient at the global shape on every rank
+        split = [isinstance(p, Shard) and p.dim == 0 for p in tgt.placements]
+        pl = tuple(Shard(0) if s else Replicate() for s in split)
+        avg = [Partial("avg") if s else Replicate() for s in split]
+        loss = on_shards(nll, (logits, tgt), (pl, pl), avg)
+    else:
+        loss = nll(logits, tgt)
     return loss + aux_weight * aux, (loss, aux)
 
 
@@ -454,8 +493,8 @@ def _gqa_decode_layer(blk: LMBlock, x: torch.Tensor, kc: torch.Tensor,
     q = apply_rope(proj(h, blk.wq), positions, cfg.rope_theta)
     k_new = apply_rope(proj(h, blk.wk), positions, cfg.rope_theta)
     v_new = proj(h, blk.wv)
-    kc[:, pos] = k_new[:, 0].to(kc.dtype)
-    vc[:, pos] = v_new[:, 0].to(vc.dtype)
+    write_position(kc, pos, k_new[:, 0])
+    write_position(vc, pos, v_new[:, 0])
     o = decode_attention(q, kc, vc, cache_len, window=cfg.window)
     return out_proj(o, blk.wo)
 

@@ -28,10 +28,12 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels.embedding_bag import EmbeddingBag
 from repro_torch.kernels.gather_scatter.ref import scatter_add_ref
 from repro_torch.models.lm.layers import init_dense
+from repro_torch.models.lm.sharding import DB, constrain, on_shards, rows_of
 
 KERNEL_ROUTES = ("auto", "kernel", "reference")
 
@@ -150,7 +152,9 @@ def _mlp(layers: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
         x = x @ l.w + l.b
         if i < len(layers) - 1:
             x = torch.relu(x)
-    # L2-normalised output embeddings (standard for dot retrieval)
+    # L2-normalised output embeddings (standard for dot retrieval); over a
+    # mesh the rows whole first (the norm's backward writes in place)
+    x = constrain(x, DB, None)
     return x / torch.clamp_min(
         torch.linalg.vector_norm(x, dim=-1, keepdim=True), 1e-6)
 
@@ -163,7 +167,11 @@ def _tower(table: torch.Tensor, mlp: nn.ModuleList, ids: torch.Tensor,
     bags = ids.reshape(B * n_fields, cfg.bag_size).to(torch.int32)
     emb = EmbeddingBag.apply(table, bags.contiguous(), "mean",
                              _route(kernels, table))
-    return _mlp(mlp, emb.reshape(B, n_fields * cfg.embed_dim))
+    emb = rows_of(emb, B)        # a mesh's split of the bags, per user
+    # pinned, so that the tower's gradient comes back in rows the view
+    # can split
+    return _mlp(mlp, constrain(emb.reshape(B, n_fields * cfg.embed_dim),
+                               DB, None))
 
 
 def user_embedding(model: TwoTower, user_ids: torch.Tensor,
@@ -187,11 +195,37 @@ def two_tower_loss(model: TwoTower, user_ids: torch.Tensor,
     u = user_embedding(model, user_ids, cfg, kernels)      # (B, d)
     v = item_embedding(model, item_ids, cfg, kernels)      # (B, d)
     logits = (u @ v.T) / cfg.temperature                   # (B, B)
+    if isinstance(logits, DTensor):
+        return _in_batch_on_shards(logits)
     labels = torch.arange(u.shape[0], device=u.device)
     lp = torch.log_softmax(logits, dim=-1)
     loss = -lp.diagonal().mean()
     acc = (logits.argmax(dim=-1) == labels).to(torch.float32).mean()
     return loss, acc
+
+
+def _in_batch_on_shards(logits):
+    """:func:`two_tower_loss`'s loss and accuracy over a mesh, rank by
+    rank: each rank's users (a split of the rows) against every item, its
+    own items at its row offset, the means averaged over the ranks."""
+    mesh = logits.device_mesh
+    split = [isinstance(p, Shard) and p.dim == 0 for p in logits.placements]
+    rows, first = logits.shape[0], 0
+    for i, s in enumerate(split):
+        if s:
+            rows //= mesh.size(i)
+            first = first * mesh.size(i) + mesh.get_local_rank(i)
+    first *= rows
+
+    def local(lg):
+        own = first + torch.arange(lg.shape[0], device=lg.device)
+        lp = torch.log_softmax(lg, dim=-1)
+        loss = -lp.gather(1, own[:, None]).mean()
+        return loss, (lg.argmax(dim=-1) == own).to(torch.float32).mean()
+
+    pl = tuple(Shard(0) if s else Replicate() for s in split)
+    avg = [Partial("avg") if s else Replicate() for s in split]
+    return on_shards(local, (logits,), (pl,), (avg, avg))
 
 
 def two_tower_value_and_grad(

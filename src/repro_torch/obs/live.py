@@ -284,10 +284,29 @@ class TelemetryServer:
             def log_message(self, fmt, *args):
                 LOG.debug("telemetry http: " + fmt, *args)
 
-        self._httpd = http.server.ThreadingHTTPServer(
-            (self.host, self.port), Handler
-        )
-        self._httpd.daemon_threads = True
+        class Server(http.server.ThreadingHTTPServer):
+            """Each request's thread comes from ``spawn`` and is kept, so
+            that ``stop`` can join it: ``ThreadingMixIn`` tracks no daemon
+            request thread, and ``server_close`` would return while the
+            last request's thread still runs."""
+
+            daemon_threads = True
+
+            def __init__(self, *args):
+                super().__init__(*args)
+                self.handlers: List[threading.Thread] = []
+                self.handlers_lock = threading.Lock()
+
+            def process_request(self, request, client_address):
+                t = spawn("obs-telemetry-request",
+                          self.process_request_thread,
+                          args=(request, client_address), start=False)
+                with self.handlers_lock:
+                    self.handlers = [h for h in self.handlers
+                                     if h.is_alive()] + [t]
+                t.start()
+
+        self._httpd = Server((self.host, self.port), Handler)
         self.port = self._httpd.server_address[1]
         self._thread = spawn("obs-telemetry-http", self._httpd.serve_forever)
         LOG.info("telemetry endpoint: http://%s:%d/metrics",
@@ -299,10 +318,12 @@ class TelemetryServer:
             return
         from repro_torch.core.threads import join_bounded
 
-        self._httpd.shutdown()
+        self._httpd.shutdown()       # no request is taken after this
         self._httpd.server_close()
-        join_bounded(self._thread, timeout_s, counters=self.counters,
-                     what="telemetry http thread")
+        with self._httpd.handlers_lock:
+            handlers = list(self._httpd.handlers)
+        join_bounded([self._thread] + handlers, timeout_s,
+                     counters=self.counters, what="telemetry http thread")
         self._httpd = self._thread = None
 
     def __enter__(self) -> "TelemetryServer":

@@ -18,6 +18,7 @@ corrections are float32 tensor math on the int32 step, as in JAX.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.tree import leaves, plain, rebuild
 
@@ -63,6 +64,9 @@ def _leaf_step_(g, p, m, v, c1, c2, lr, b1, b2, eps, weight_decay):
     their new values and returns the new parameter in float32, leaving
     ``p`` unchanged. Its temporaries are at most three of the leaf's
     size."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        # a gradient spread over a mesh, in its parameter's placements
+        g = g.redistribute(p.device_mesh, p.placements)
     g32 = g.to(torch.float32)
     m.mul_(b1).add_((1 - b1) * g32)
     v.mul_(b2).add_((1 - b2) * g32 * g32)

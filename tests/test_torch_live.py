@@ -16,7 +16,9 @@
   record's), and one valid record of the launcher's run kind with backend
   ``"cpu"``.
 """
+import http.server
 import math
+import socketserver
 import tempfile
 import threading
 import time
@@ -192,6 +194,44 @@ def test_telemetry_server_byte_counters_after_a_pipelined_epoch():
         assert parsed[f"repro_counters_{f}"] == snap[f], f
     assert c.threads_leaked == 0
     assert threading.active_count() == before
+
+
+def test_telemetry_server_stop_joins_every_request_thread(monkeypatch):
+    """``stop`` returns with no request thread alive: 20 requests, the
+    last a 404, then ``stop``, 50 times in a row. The 404's thread lingers
+    until the server's socket has closed, and 20 ms more, so a ``stop``
+    that does not join it returns while it is alive."""
+    closed = threading.Event()
+    close = http.server.ThreadingHTTPServer.server_close
+    finish = socketserver.StreamRequestHandler.finish
+
+    def server_close(self):
+        close(self)
+        closed.set()
+
+    def slow_finish(self):
+        finish(self)
+        if getattr(self, "path", "") == "/nope":
+            closed.wait(5)
+            time.sleep(0.02)
+
+    monkeypatch.setattr(http.server.ThreadingHTTPServer, "server_close",
+                        server_close)
+    monkeypatch.setattr(socketserver.StreamRequestHandler, "finish",
+                        slow_finish)
+    before = threading.active_count()
+    for _ in range(50):
+        closed.clear()
+        c = Counters()
+        srv = TelemetryServer(c, port=0).start()
+        for _ in range(19):
+            scrape(srv.port)
+        with pytest.raises(urllib.error.HTTPError):
+            urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/nope",
+                                   timeout=10)
+        srv.stop()
+        assert threading.active_count() == before
+        assert c.threads_leaked == 0
 
 
 @pytest.fixture()

@@ -328,15 +328,20 @@ def test_dense_check_counts_kink_flips_past_its_tolerance(monkeypatch):
 
 
 def test_launcher_exit_codes(monkeypatch, capsys):
-    for argv in (["--arch", "mixtral-8x7b", "--offload"],
-                 ["--arch", "pna"],
-                 ["--arch", "gcn-cora"]):
+    with pytest.raises(SystemExit) as ei:
+        launch_train.main(["--arch", "mixtral-8x7b", "--offload"])
+    assert ei.value.code == 2
+    assert "requires a GNN arch" in capsys.readouterr().out
+    # a GNN id's full configuration hands over to its dry run, which runs
+    # on the card unless --device says otherwise
+    for arch in ("pna", "gcn-cora"):
         with pytest.raises(SystemExit) as ei:
-            launch_train.main(argv)
-        assert ei.value.code == 2
-    out = capsys.readouterr().out
-    assert "requires a GNN arch" in out
-    assert "pna: only --offload" in out and "gcn-cora: only --offload" in out
+            launch_train.main(["--arch", arch])
+        assert ei.value.code == 1
+        out = capsys.readouterr().out
+        assert f"{arch}: the full configuration runs on the production " \
+               f"mesh; its dry run (full_graph_sm, 16x16)" in out
+        assert "CUDA is unavailable" in out
     # the real smoke, on the CPU (the launcher runs on the card unless
     # --device says otherwise)
     with pytest.raises(SystemExit) as ei:
@@ -373,7 +378,8 @@ def test_launcher_resolves_gnn_archs_through_the_registry(monkeypatch,
     """A GNN arch's family is its ``GNNArch.model`` (the reference takes
     the id's first word, which is not a family for ``graphsage-reddit``):
     ``--smoke`` runs ``ArchSpec.smoke`` and ``--offload`` the SSO engine
-    smoke, on the CPU with ``--device cpu``; a full config exits 2."""
+    smoke, on the CPU with ``--device cpu``; a full config runs its dry
+    run (exit 0 and its report line)."""
     from repro_torch.configs import REGISTRY
     from repro_torch.launch.infer import GNN_ARCHS
 
@@ -391,9 +397,9 @@ def test_launcher_resolves_gnn_archs_through_the_registry(monkeypatch,
         assert ei.value.code == 0
         assert say in capsys.readouterr().out
     with pytest.raises(SystemExit) as ei:
-        launch_train.main(["--arch", "graphcast"])
-    assert ei.value.code == 2
-    assert "dry run" in capsys.readouterr().out
+        launch_train.main(["--arch", "graphcast", "--device", "cpu"])
+    assert ei.value.code == 0
+    assert "[ok] graphcast full_graph_sm 16x16" in capsys.readouterr().out
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         launch_train.main(["--arch", "pna", "--smoke"])
