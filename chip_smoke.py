@@ -116,10 +116,9 @@ and spill report and checks that the bf16 flash kernel's SASS holds
   and device seconds, peak device GB; (2) the cost model's tiers measured
   (``measure_tiers``) and printed beside ``H100_MACHINE``'s constants,
   with whether the page-cache eviction took (printed, not checked: another
-  machine's disk is no fault of the code); (3) ``modeled_time`` and
-  ``format_attribution(attribution_report(...))`` of phase D's
-  kernel-fused depth-2 run (its epoch's counters, ``gnn_epoch_flops``, its
-  measured wall), naming the limiting stage; (4) a pipelined GCN epoch at
+  machine's disk is no fault of the code); (3) ``modeled_time`` of phase D's
+  kernel-fused depth-2 run (its epoch's counters, ``gnn_epoch_flops``)
+  printed beside its measured wall; (4) a pipelined GCN epoch at
   phase B's size under a ``TelemetryServer`` on a free port: ``GET
   /metrics`` holds the byte counters of ``Counters.snapshot()`` exactly;
   (5) ``launch.train --arch gcn-cora --offload --ledger <tmp>``: exit 0
@@ -1915,17 +1914,13 @@ def phase_j_tiers(smi: str, dev) -> dict:
     return t
 
 
-def phase_j_attribution(fused: dict, n: int, e: int) -> None:
-    """``modeled_time`` and ``attribution_report`` (``H100_MACHINE``) of
-    phase D's kernel-fused depth-2 run: its ``Counters`` (the epoch and the
-    ``initialize`` before it, which writes the layer-0 table),
-    ``gnn_epoch_flops(n, e, DIMS)`` and its measured wall (one epoch +
-    AdamW)."""
+def phase_j_modeled(fused: dict, n: int, e: int) -> None:
+    """``modeled_time`` (``H100_MACHINE``) of phase D's kernel-fused depth-2
+    run: its ``Counters`` (the epoch and the ``initialize`` before it, which
+    writes the layer-0 table), ``gnn_epoch_flops(n, e, DIMS)`` and its
+    measured wall (one epoch + AdamW)."""
     from repro_torch.core.costmodel import (
         H100_MACHINE, gnn_epoch_flops, modeled_time,
-    )
-    from repro_torch.obs.attribution import (
-        attribution_report, format_attribution,
     )
 
     c = fused["counters"]
@@ -1938,13 +1933,6 @@ def phase_j_attribution(fused: dict, n: int, e: int) -> None:
           f"{mt.t_host:.3f} s, compute {mt.t_compute:.4f} s "
           f"({flops:.4g} FLOP); serial {mt.serial:.3f} s, overlapped "
           f"{mt.overlapped:.3f} s", flush=True)
-    rep = attribution_report(c.snapshot(), H100_MACHINE, wall, flops=flops,
-                             metrics=c.metrics.snapshot())
-    print(format_attribution(rep), flush=True)
-    check(rep["limiting_stage"] is not None,
-          f"attribution's limiting stage: {rep['limiting_stage']} (modeled "
-          f"{rep['modeled_s'][rep['limiting_stage']]:.3f} s of the "
-          f"{wall:.3f} s wall)")
 
 
 def phase_j_telemetry(dev) -> dict:
@@ -2090,7 +2078,7 @@ def phase_j(g, fused: dict, smi: str, dev):
     measured tiers."""
     phase_j_microbatch(g, dev)
     tiers = phase_j_tiers(smi, dev)
-    phase_j_attribution(fused, g.n_nodes, g.n_edges)
+    phase_j_modeled(fused, g.n_nodes, g.n_edges)
     launches = dict(NO_LAUNCHES)
     for run in (phase_j_telemetry, phase_j_ledger, phase_j_example):
         for k, v in run(dev).items():

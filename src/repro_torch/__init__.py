@@ -16,7 +16,7 @@ the two-tower retrieval model (``models/recsys/``, serving and training,
 with its example programs in ``examples/``); the dense LM's serving
 (``models/lm/``); the micro-batch baseline (``core/microbatch.py``), the
 neighbour sampler, the tier cost model (``core/costmodel.py``), the run
-ledger, attribution, regression sentinel and live telemetry (``obs/``)
+ledger, regression sentinel and live telemetry (``obs/``)
 and the three GNN examples; and the hand-written CUDA kernels, every
 Pallas kernel of the reference (``kernels/*/csrc/``).
 """

@@ -62,6 +62,29 @@ class Counters:
     # fault tolerance (storage retries + runtime unwind paths)
     threads_leaked: int = 0   # pipeline/I-O threads that outlived join timeout
     slow_lane_pins: int = 0   # prefetches forced cache-resident by slow lane
+    # the compute thread's states (runtime/accounting.py LoopClock), in ns:
+    # enqueuing a unit's device work, blocked on the card, the ∇A
+    # write-back, bypass writes and retires, layer ends, and the stages the
+    # serial path runs inline; its waits for a unit are compute_wait_* stalls
+    loop_launch_ns: int = 0
+    loop_sync_ns: int = 0
+    loop_scatter_ns: int = 0
+    loop_write_ns: int = 0
+    loop_barrier_ns: int = 0
+    loop_fetch_ns: int = 0
+    # the card's time of each pass's units (runtime/accounting.py
+    # DeviceClock: CUDA events, with the tracer on only), in ns
+    device_fwd_ns: int = 0
+    device_loss_ns: int = 0
+    device_bwd_ns: int = 0
+    # the host gather's parts: every storage-tier read (retries included),
+    # the gather's row / block copies, and the gather workers' own CPU
+    # time, involuntary context switches and major faults (tracer on only)
+    storage_read_ns: int = 0
+    host_copy_ns: int = 0
+    gather_cpu_ns: int = 0
+    gather_nivcsw: int = 0
+    gather_majflt: int = 0
 
     # soft cap on retained memory-timeline samples: past this the timeline
     # is decimated in place (every 2nd sample dropped, sampling stride

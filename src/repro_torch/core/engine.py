@@ -354,6 +354,7 @@ class SSOEngine:
         L = self.n_layers
         rt = self._rt
         runner = self.fwd_runner
+        loop, dclock = rt.loop, rt.device_clock
         dev = self.device
         # grad files per layer (lazily zero-filled via materialization set)
         for l in range(L + 1):
@@ -362,6 +363,7 @@ class SSOEngine:
                 st.free(name)
             st.alloc(name, (n, self.dims[l]), self.dtype)
         self._materialized_grads.clear()
+        loop.lap("barrier")
 
         # ---- loss layer: dL/dA^L per partition. Logits reads are pipelined
         # through run_stream (busy charged to "loss_fetch"); the dlog
@@ -408,20 +410,30 @@ class SSOEngine:
             xfer_wait_stage="compute_wait_xfer_loss",
             xfer_up_stage="xfer_wait_up_loss",
         ):
-            lg_dev, lb_dev, ev = lg if use_xfer else stage_loss(u, lg)
+            if use_xfer:
+                lg_dev, lb_dev, ev = lg
+            else:
+                lg_dev, lb_dev, ev = stage_loss(u, lg)
+                loop.lap("fetch")
             lg = None
             runner._await(ev, lg_dev, lb_dev)
+            dclock.start()
             loss_p, dlog = self._loss_grad(lg_dev, lb_dev, n_total)
+            dclock.stop("loss")
             # the D2H copy of dlog's real rows lands while the loss scalar
             # transfers
             dlog_np, d2h_ev = rt._start_d2h(dlog[: u.n_dst])
+            loop.lap("launch")
             total_loss += float(loss_p)
             if d2h_ev is not None:
                 d2h_ev.synchronize()
+            loop.lap("sync")
             self.counters.bump("d2h_bytes", dlog_np.nbytes)
             del lg_dev, lb_dev, dlog
-            with PhaseTimer(self.counters, "scatter"):
-                self._grad_accumulate(L, u.p, np.arange(u.n_dst), dlog_np)
+            self._grad_accumulate(L, u.p, np.arange(u.n_dst), dlog_np)
+            loop.lap("scatter")
+        # the stream's teardown (its stage threads joined)
+        loop.lap("barrier")
         if tracer.enabled:
             tracer.complete("loss_layer", time.perf_counter() - t_loss,
                             args={"units": len(units)})
@@ -493,50 +505,55 @@ class SSOEngine:
                 xfer_wait_stage="compute_wait_xfer_bwd",
                 xfer_up_stage="xfer_wait_up_bwd",
             ):
-                with PhaseTimer(self.counters, "compute_bwd"):
-                    if use_xfer:
-                        (staged, ev), do_dev = ga, d_out
-                    else:
-                        # serial staging on the compute stream (the aux
-                        # fetch, when off, runs inline here too)
-                        (staged, ev), do_dev = self._stage_bwd(
-                            l, u, ga, d_out, use_stacked
-                        )
-                    ga = d_out = None
-                    if use_stacked:
-                        stack_dev, idx_dev = staged
-                        runner._await(ev, stack_dev, idx_dev, do_dev)
-                        dp, dga = bwd(params[l], stack_dev, idx_dev, u.topo,
-                                      do_dev)
-                        del stack_dev, idx_dev
-                    else:
-                        runner._await(ev, staged, do_dev)
-                        dp, dga = bwd(params[l], staged, u.topo, do_dev)
-                    # the unit's device inputs are dead: free them before
-                    # the next unit stages (layer 0's GA is the widest)
-                    staged = do_dev = None
-                    # start the D2H copy of ∇GA; it lands under the dW
-                    # accumulate
-                    dga_np, d2h_ev = rt._start_d2h(dga[: u.n_req])
-                    dW_acc = (
-                        dp
-                        if dW_acc is None
-                        else {k: dW_acc[k] + dp[k] for k in dW_acc}
+                if use_xfer:
+                    (staged, ev), do_dev = ga, d_out
+                else:
+                    # serial staging on the compute stream (the aux fetch,
+                    # when off, runs inline here too)
+                    (staged, ev), do_dev = self._stage_bwd(
+                        l, u, ga, d_out, use_stacked
                     )
-                    del dga, dp
-                    if d2h_ev is not None:
-                        d2h_ev.synchronize()
-                    self.counters.bump("d2h_bytes", dga_np.nbytes)
+                    loop.lap("fetch")
+                ga = d_out = None
+                if use_stacked:
+                    stack_dev, idx_dev = staged
+                    runner._await(ev, stack_dev, idx_dev, do_dev)
+                    dclock.start()
+                    dp, dga = bwd(params[l], stack_dev, idx_dev, u.topo,
+                                  do_dev)
+                    del stack_dev, idx_dev
+                else:
+                    runner._await(ev, staged, do_dev)
+                    dclock.start()
+                    dp, dga = bwd(params[l], staged, u.topo, do_dev)
+                dclock.stop("bwd")
+                # the unit's device inputs are dead: free them before the
+                # next unit stages (layer 0's GA is the widest)
+                staged = do_dev = None
+                # start the D2H copy of ∇GA; it lands under the dW
+                # accumulate
+                dga_np, d2h_ev = rt._start_d2h(dga[: u.n_req])
+                dW_acc = (
+                    dp
+                    if dW_acc is None
+                    else {k: dW_acc[k] + dp[k] for k in dW_acc}
+                )
+                del dga, dp
+                loop.lap("launch")
+                if d2h_ev is not None:
+                    d2h_ev.synchronize()
+                loop.lap("sync")
+                self.counters.bump("d2h_bytes", dga_np.nbytes)
                 if l > 0:
                     # scatter ∇GA rows back to their source partitions
-                    with PhaseTimer(self.counters, "scatter"):
-                        ptr = u.req_part_ptr
-                        for q in u.req_parts:
-                            a0, _ = plan.ro.partition_slice(int(q))
-                            rows = u.req_global[ptr[q] : ptr[q + 1]] - a0
-                            self._grad_accumulate(
-                                l, int(q), rows, dga_np[ptr[q] : ptr[q + 1]]
-                            )
+                    ptr = u.req_part_ptr
+                    for q in u.req_parts:
+                        a0, _ = plan.ro.partition_slice(int(q))
+                        rows = u.req_global[ptr[q] : ptr[q + 1]] - a0
+                        self._grad_accumulate(
+                            l, int(q), rows, dga_np[ptr[q] : ptr[q + 1]]
+                        )
+                    loop.lap("scatter")
                 del dga_np
             grads[l] = dW_acc
             # drop consumed grad layer l+1 from cache & storage; barrier
@@ -546,12 +563,14 @@ class SSOEngine:
             st.free(_grad_name(l + 1))
             if self.mode == "snapshot":
                 self.cache.drop_layer("snap", l, flush=False)
+            loop.lap("barrier")
             if tracer.enabled:
                 tracer.complete("bwd_layer", time.perf_counter() - t_layer,
                                 args={"layer": l, "units": len(units)})
         self.cache.drop_layer("grad", 0, flush=False)
         rt.drain_writes()
         st.free(_grad_name(0))
+        loop.lap("barrier")
         return total_loss, grads
 
     # ----------------------------------------------------------------- step
@@ -560,10 +579,17 @@ class SSOEngine:
         one layer module per layer on the engine's device (``spec.init`` or
         ``params_from_jax``). Returns ``(loss, grads)`` as :meth:`backward`."""
         t0 = time.perf_counter()
+        rt = self._rt
+        rt.loop.mark()
+        rt.device_clock.arm()
         try:
             with PhaseTimer(self.counters, "epoch"):
                 self.forward(params)
                 loss, grads = self.backward(params, labels_reordered)
+                # tracer on, on the card: the units' device times (one
+                # event wait)
+                rt.device_clock.resolve()
+                rt.loop.lap("sync")
         except BaseException:
             # faulted epoch (fatal storage error, stage crash): the stream's
             # own unwind released stranded buffers; drop any pins taken by

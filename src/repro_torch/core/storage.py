@@ -135,6 +135,10 @@ class StorageTier:
         self._m_retries = m.counter("io.retries")
         self._m_deadline = m.counter("io.deadline_misses")
         self._m_rereads = m.counter("io.corruption_rereads")
+        # every read's service time, from whichever thread calls the tier
+        # (gather and prefetch workers, the I/O queue, the compute loop):
+        # the same timing as Counters.storage_read_ns
+        self._read_lat = m.histogram("storage.read_seconds")
         os.makedirs(root, exist_ok=True)
 
     # -- lifecycle ----------------------------------------------------------
@@ -338,6 +342,16 @@ class StorageTier:
         mm = self._arrays[name]
         return np.array(mm[rows])
 
+    def _timed_read(self, kind: str, fn, verify):
+        """``(out, ns)``: one read through :meth:`_reliable`, retries and
+        backoff included, and its time, which the ``storage.read_seconds``
+        histogram observes."""
+        t0 = time.perf_counter_ns()
+        out = self._reliable(kind, fn, verify)
+        ns = time.perf_counter_ns() - t0
+        self._read_lat.observe(ns * 1e-9)
+        return out, ns
+
     # -- public (reliable, accounted) ops -----------------------------------
     def write_rows(self, name: str, row0: int, arr: np.ndarray) -> None:
         self._reliable("write",
@@ -355,7 +369,7 @@ class StorageTier:
         verify = None
         if self.verify_reads:
             verify = lambda a: self._verify_rows(name, range(row0, row1), a)
-        out = self._reliable(
+        out, ns = self._timed_read(
             "read", lambda: self._read_rows_once(name, row0, row1), verify
         )
         nb = out.nbytes
@@ -363,6 +377,7 @@ class StorageTier:
             storage_read_bytes=nb,
             storage_read_paged_bytes=self._paged(nb),
             storage_read_ops=1,
+            storage_read_ns=ns,
         )
         return out
 
@@ -385,7 +400,7 @@ class StorageTier:
             def verify(outs):
                 for (name, row0, row1), out in zip(requests, outs):
                     self._verify_rows(name, range(row0, row1), out)
-        outs = self._reliable(
+        outs, ns = self._timed_read(
             "read_batch", lambda: self._read_rows_batched_once(requests),
             verify,
         )
@@ -397,6 +412,7 @@ class StorageTier:
             storage_read_bytes=nb,
             storage_read_paged_bytes=paged,
             storage_read_ops=1,
+            storage_read_ns=ns,
         )
         return outs
 
@@ -404,19 +420,19 @@ class StorageTier:
         """Vertex-granular random read (the *anti-pattern* the paper avoids).
 
         Physical accounting charges one page per non-contiguous row run,
-        modelling read amplification. Used by the vertex-wise cache baseline
-        (Appendix F comparison).
+        modelling read amplification: one op per run, but one observation of
+        ``storage.read_seconds`` per call (the call's service time). Used by
+        the vertex-wise cache baseline (Appendix F comparison).
         """
         verify = None
         if self.verify_reads:
             verify = lambda a: self._verify_rows(name, rows, a)
-        out = self._reliable(
-            "read_scattered",
-            lambda: self._read_rows_scattered_once(name, rows), verify,
-        )
+        fn = lambda: self._read_rows_scattered_once(name, rows)
         if len(rows) == 0:
-            # nothing was touched on the device: no ops, no paged bytes
-            return out
+            # nothing was touched on the device: no ops, no paged bytes,
+            # no time
+            return self._reliable("read_scattered", fn, verify)
+        out, ns = self._timed_read("read_scattered", fn, verify)
         # contiguous runs
         runs = 1 + int(np.sum(np.diff(np.sort(rows)) > 1))
         self.counters.bump_many(
@@ -425,6 +441,7 @@ class StorageTier:
                 runs * self.page, self._paged(out.nbytes)
             ),
             storage_read_ops=runs,
+            storage_read_ns=ns,
         )
         return out
 
@@ -485,13 +502,13 @@ class StorageIOQueue:
         self.max_inflight_observed = 0
         self._closed = False
         self._exc: Optional[BaseException] = None
-        # obs: queue depth polls live state only when snapshotted; per-op
+        # obs: queue depth polls live state only when snapshotted; a write's
         # service latency (including any emulated device delay in tier
-        # subclasses) is observed in _run around the tier call
+        # subclasses) is observed in _run around the tier call, a read's by
+        # the tier itself
         m = self.counters.metrics
         m.gauge("storage.io_queue_depth", fn=lambda: len(self._q))
         m.gauge("storage.io_inflight_bytes", fn=lambda: self._inflight_bytes)
-        self._read_lat = m.histogram("storage.read_seconds")
         self._write_lat = m.histogram("storage.write_seconds")
         self._m_deadline = m.counter("io.deadline_misses")
         self._m_slow_flips = m.counter("io.slow_lane_flips")
@@ -666,7 +683,7 @@ class StorageIOQueue:
                     args = {"file": payload[0], "bytes": int(payload[2].nbytes)}
                 self.counters.record_busy("write_behind", dt, args=args)
             else:
-                self._read_lat.observe(dt)
+                # the tier observed storage.read_seconds for this read
                 args = None
                 if self.counters.tracer.enabled:
                     if kind == "rb":

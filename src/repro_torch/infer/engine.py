@@ -152,6 +152,9 @@ class OffloadedInference:
         st = self.storage
         L = self.n_layers
         t0 = time.perf_counter()
+        loop, dclock = self._rt.loop, self._rt.device_clock
+        loop.mark()
+        dclock.arm()
         with PhaseTimer(self.counters, "infer"):
             for l in range(L):
                 last = l == L - 1
@@ -159,6 +162,7 @@ class OffloadedInference:
                 if st.exists(name_out):
                     st.free(name_out)
                 st.alloc(name_out, (n, self.dims[l + 1]), self.store_dtype)
+                loop.lap("barrier")
                 self.runner.run_layer(
                     l, params[l], activate=not last, out_name=name_out,
                 )
@@ -167,6 +171,11 @@ class OffloadedInference:
                     # gathers above (run_layer drained all writes): truncate
                     self.cache.drop_layer(self.runner.act_kind, l, flush=False)
                     st.free(act_file(l))
+                    loop.lap("barrier")
+            # tracer on, on the card: the units' device times (one event
+            # wait)
+            dclock.resolve()
+            loop.lap("sync")
         self._summarizer.log_epoch(time.perf_counter() - t0)
         return self.final_name
 

@@ -6,8 +6,6 @@
 - :mod:`repro_torch.obs.ledger` — append-only cross-run performance ledger
 - :mod:`repro_torch.obs.live` — live sampler, Prometheus exporter, HTTP
   endpoint
-- :mod:`repro_torch.obs.attribution` — achieved-vs-peak utilization per
-  stage
 - :mod:`repro_torch.obs.regress` — noise-aware perf-regression sentinel
   stats
 
@@ -16,7 +14,6 @@ Deliberately dependency-free (stdlib only) and imported by
 ``repro_torch.core`` / ``repro_torch.runtime`` at module scope (``live``
 reaches ``repro_torch.core.threads.spawn`` lazily at thread-start time).
 """
-from repro_torch.obs.attribution import attribution_report, format_attribution
 from repro_torch.obs.ledger import (
     LedgerSchemaError, RunLedger, config_fingerprint, make_record,
 )
@@ -34,5 +31,4 @@ __all__ = [
     "RunLedger", "LedgerSchemaError", "make_record", "config_fingerprint",
     "LiveSampler", "TelemetryServer",
     "to_prometheus_text", "parse_prometheus_text",
-    "attribution_report", "format_attribution",
 ]

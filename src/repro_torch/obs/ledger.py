@@ -17,8 +17,8 @@ later reader needs to compare runs without re-running them:
 - ``counters`` / ``metrics`` — the full :meth:`Counters.snapshot` and
   :meth:`MetricsRegistry.snapshot` dumps, so any number that later turns
   out to matter is already in the history;
-- ``attribution`` — the achieved-vs-peak utilization report
-  (:mod:`repro_torch.obs.attribution`), when the producer computed one.
+- ``attribution`` — an achieved-vs-peak utilization report, when the
+  producer computed one (the reference's record schema).
 
 Writes are one ``write()`` of one ``\\n``-terminated line on an append-mode
 handle under a lock — concurrent appenders (two benches, or a bench racing
@@ -103,9 +103,8 @@ def make_record(
     contributes both its scalar snapshot and its metrics-registry snapshot;
     ``watch`` maps headline metric names to ``"lower"``/``"higher"`` (which
     direction is better — consumed by the regression sentinel);
-    ``attribution`` is the achieved-vs-peak report from
-    :mod:`repro_torch.obs.attribution`; ``backend`` the device type the run
-    used (``"cuda"`` or ``"cpu"``).
+    ``attribution`` an achieved-vs-peak report, when the producer has one;
+    ``backend`` the device type the run used (``"cuda"`` or ``"cpu"``).
     """
     rec = dict(
         kind=LEDGER_KIND,

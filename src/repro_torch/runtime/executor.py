@@ -39,6 +39,7 @@ dropped on overflow) so multi-epoch runs don't pin their peak footprint.
 from __future__ import annotations
 
 import logging
+import resource
 import threading
 import time
 import weakref
@@ -53,12 +54,23 @@ from repro_torch.core.counters import Counters
 from repro_torch.core.storage import StorageIOQueue, StorageTier
 from repro_torch.core.threads import join_bounded, spawn
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.runtime.accounting import DeviceClock, LoopClock
 from repro_torch.runtime.config import PipelineConfig
 from repro_torch.runtime.queues import (
     DONE, PipelineAbort, ReassemblyBuffer, StageQueue,
 )
 
 _log = logging.getLogger("repro_torch.runtime")
+
+# gather stages whose workers account their own CPU time and rusage
+_CPU_STAGES = ("gather", "regather")
+
+
+def _thread_rusage():
+    """The calling thread's own resource usage; None where the platform
+    has no per-thread usage (``RUSAGE_THREAD`` is Linux's)."""
+    who = getattr(resource, "RUSAGE_THREAD", None)
+    return resource.getrusage(who) if who is not None else None
 
 
 class BufferPool:
@@ -318,6 +330,10 @@ class PipelineExecutor:
         # distinguishes per-unit async trace span ids across run_stream
         # calls (seq numbers restart at 0 every layer pass)
         self._stream_seq = 0
+        # the calling (compute) thread's states and the card's time per
+        # pass: run_stream charges its own share, the engines' loops the rest
+        self.loop = LoopClock(counters)
+        self.device_clock = DeviceClock(counters, self.device)
 
     def _writer_owns(self, arr: np.ndarray) -> bool:
         w = self._writer
@@ -486,6 +502,7 @@ class PipelineExecutor:
         """
         items = list(items)
         use_xfer = transfer_fn is not None and self.cfg.transfer_stage
+        loop = self.loop
         if not self.cfg.enabled or len(items) <= 1:
             for it in items:
                 buf = gather_fn(it)
@@ -493,6 +510,7 @@ class PipelineExecutor:
                 if use_xfer:   # same gating as the pipelined path, so the
                     # yielded shape never depends on the item count
                     buf, aux = transfer_fn(it, buf, aux)
+                loop.lap("fetch")
                 yield it, buf, aux
             return
 
@@ -543,6 +561,20 @@ class PipelineExecutor:
             except Exception:
                 _log.exception("cleanup_fn failed during unwind")
 
+        cpu_stage = gather_stage in _CPU_STAGES
+
+        def _account_cpu(cpu_ns: int, ru0) -> None:
+            """The gather's CPU time on this worker, and its involuntary
+            context switches and major faults where the platform reports a
+            thread's own usage (``ru0``: the usage before the gather)."""
+            ru1 = _thread_rusage()
+            if ru0 is None or ru1 is None:
+                c.bump("gather_cpu_ns", cpu_ns)
+                return
+            c.bump_many(gather_cpu_ns=cpu_ns,
+                        gather_nivcsw=ru1.ru_nivcsw - ru0.ru_nivcsw,
+                        gather_majflt=ru1.ru_majflt - ru0.ru_majflt)
+
         def _gather_worker():
             inhand = None
             try:
@@ -551,12 +583,18 @@ class PipelineExecutor:
                     if x is DONE:
                         return
                     seq, it = x
+                    timed = cpu_stage and tracer.enabled
+                    ru0 = _thread_rusage() if timed else None
                     t0 = time.perf_counter()
+                    cpu0 = time.thread_time_ns() if timed else 0
                     buf = gather_fn(it)
                     inhand = (it, buf, None)
+                    cpu = time.thread_time_ns() - cpu0 if timed else 0
                     dt = time.perf_counter() - t0
                     args = {"part": _part(it)} if tracer.enabled else None
                     c.record_busy(gather_stage, dt, args=args)
+                    if timed:
+                        _account_cpu(cpu, ru0)
                     aux = None
                     if aux_fn is not None:
                         t0 = time.perf_counter()
@@ -618,6 +656,7 @@ class PipelineExecutor:
 
         for t in threads:
             t.start()
+        loop.lap("barrier")
         try:
             for seq in range(len(items)):
                 if use_xfer:
@@ -627,6 +666,7 @@ class PipelineExecutor:
                         )
                     except PipelineAbort:
                         break
+                    loop.mark()   # the wait is the xfer_wait_stage stall
                     yield it, buf, aux
                     # the unit's device inputs are consumed: free its slot so
                     # the transfer thread can stage the next-but-one unit
@@ -637,6 +677,7 @@ class PipelineExecutor:
                         it, buf, aux = reasm.get(seq, stall_name=wait_stage)
                     except PipelineAbort:
                         break
+                    loop.mark()   # the wait is the wait_stage stall
                     yield it, buf, aux
                     buf = aux = None
                 if tracer.enabled:

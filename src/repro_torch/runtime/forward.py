@@ -182,6 +182,7 @@ class ForwardRunner:
         buf = self._rt.pool.acquire((pad_rows, d), self.dtype)
         buf[u.n_req :] = 0  # rows [0, n_req) are fully overwritten below
         ptr = u.req_part_ptr
+        copy_ns = 0
         for q in u.req_parts:
             block = self.cache.get(
                 (self.act_kind, layer, int(q)),
@@ -190,6 +191,7 @@ class ForwardRunner:
             )
             a0, _ = self.plan.ro.partition_slice(int(q))
             rows = u.req_global[ptr[q] : ptr[q + 1]] - a0
+            t0 = time.perf_counter_ns()
             if block.dtype == buf.dtype:
                 # np.take releases the GIL for numeric dtypes (unlike
                 # advanced indexing), letting worker-thread gathers overlap
@@ -200,13 +202,15 @@ class ForwardRunner:
             else:
                 # reduced-precision storage: upcast into the compute buffer
                 buf[ptr[q] : ptr[q + 1]] = block[rows]
+            copy_ns += time.perf_counter_ns() - t0
         # release exactly the pins the prefetch stage took for THIS unit
         # (none in serial mode or when a prefetch couldn't keep residency)
         for key in self.prefetch_pins.pop((layer, u.p), ()):
             self.cache.unpin(key)
-        # bump(): gathers may run on several pipeline workers concurrently
-        self.counters.bump(
-            "host_gather_bytes", u.n_req * d * self.dtype.itemsize
+        # bump_many(): gathers may run on several pipeline workers at once
+        self.counters.bump_many(
+            host_gather_bytes=u.n_req * d * self.dtype.itemsize,
+            host_copy_ns=copy_ns,
         )
         return buf
 
@@ -250,24 +254,27 @@ class ForwardRunner:
         d = self.dims[layer]
         idx, sizes, total = self._unit_idx(u)
         buf = self._rt.pool.acquire((total + 1, d), self.dtype)
-        off = 0
+        off = copy_ns = 0
         for q, sz in zip(u.req_parts, sizes):
             block = self.cache.get(
                 (self.act_kind, layer, int(q)),
                 loader=partial(self.load_part_block, layer, int(q)),
                 size_hint=self.block_nbytes(layer, int(q)),
             )
+            t0 = time.perf_counter_ns()
             if block.dtype == buf.dtype:
                 np.copyto(buf[off : off + sz], block)
             else:
                 # reduced-precision storage: upcast into the compute buffer
                 buf[off : off + sz] = block
+            copy_ns += time.perf_counter_ns() - t0
             off += sz
         buf[total] = 0   # the pad row every idx >= n_req points at
         for key in self.prefetch_pins.pop((layer, u.p), ()):
             self.cache.unpin(key)
-        self.counters.bump(
-            "host_gather_bytes", total * d * self.dtype.itemsize
+        self.counters.bump_many(
+            host_gather_bytes=total * d * self.dtype.itemsize,
+            host_copy_ns=copy_ns,
         )
         return StackedGather(buf, idx)
 
@@ -501,6 +508,7 @@ class ForwardRunner:
         # the output layer was just rewritten: cached blocks of it (loaded
         # by a previous epoch's gathers) are stale — drop before any reader
         self.cache.drop_layer(self.act_kind, l + 1, flush=False)
+        rt.loop.lap("barrier")
         tracer = self.counters.tracer
         if tracer.enabled:
             tracer.complete("fwd_layer", time.perf_counter() - t_layer,
@@ -512,6 +520,7 @@ class ForwardRunner:
         keep_host,
     ) -> None:
         rt = self._rt
+        loop, dclock = rt.loop, rt.device_clock
         for u, ga, _ in rt.run_stream(
             units, gather_fn, prefetch_fn,
             transfer_fn=transfer_fn if use_xfer else None,
@@ -521,7 +530,7 @@ class ForwardRunner:
             xfer_up_stage="xfer_wait_up_fwd",
         ):
             ev_host = None
-            with torch.no_grad(), PhaseTimer(self.counters, "compute_fwd"):
+            with torch.no_grad():
                 if use_stacked:
                     ga_host = None
                     if use_xfer:
@@ -530,22 +539,30 @@ class ForwardRunner:
                     else:
                         idx_dev = self.idx_dev(u)
                         stack_dev, _ = self.stage_h2d(ga.stack)
+                        loop.lap("fetch")
+                    dclock.start()
                     out = fwd(params_l, stack_dev, idx_dev, u.topo)
                 elif use_xfer:
                     ga_dev, ga_host, ev_host = ga
                     self._await(ev_host, ga_dev)
+                    dclock.start()
                     out = fwd(params_l, ga_dev, u.topo)
                 else:
                     ga_host = ga
                     ga_dev, ev_host = self.stage_h2d(ga, defer=not keep_host)
+                    loop.lap("fetch")
+                    dclock.start()
                     out = fwd(params_l, ga_dev, u.topo)
+                dclock.stop("fwd")
                 out_dst = out[: u.n_dst]
+                loop.lap("launch")
                 if use_xfer and self.pipeline.async_d2h and not cast:
                     # the retire thread waits on the D2H copy's event and
                     # runs the bypass write
                     out_np = None
                 else:
                     out_np = out_dst.cpu().numpy()
+                    loop.lap("sync")
                     self.counters.bump("d2h_bytes", out_np.nbytes)
                     if cast:
                         # reduced-precision storage: downcast before the
@@ -556,10 +573,10 @@ class ForwardRunner:
             if keep_host and ga_host is not None:
                 # kept for after_compute; recycled once its H2D copy landed
                 rt.pool.release(ga_host, event=ev_host)
-            with PhaseTimer(self.counters, "bypass_write"):
-                # bypass: output activations go straight to storage
-                # (write-behind when pipelined; out_np is freshly owned)
-                if out_np is None:
-                    rt.retire_write(name_out, u.v0, out_dst)
-                else:
-                    rt.write_rows(name_out, u.v0, out_np)
+            # bypass: output activations go straight to storage
+            # (write-behind when pipelined; out_np is freshly owned)
+            if out_np is None:
+                rt.retire_write(name_out, u.v0, out_dst)
+            else:
+                rt.write_rows(name_out, u.v0, out_np)
+            loop.lap("write")

@@ -1,5 +1,5 @@
-"""The port's run ledger, attribution and regression sentinel
-(``repro_torch.obs.{ledger,attribution,regress}``) against the reference's,
+"""The port's run ledger and regression sentinel
+(``repro_torch.obs.{ledger,regress}``) against the reference's,
 on the CPU — ``tests/test_ledger.py``'s cases, each as parametrised cases
 that hold the port's answer against the reference's:
 
@@ -12,23 +12,18 @@ that hold the port's answer against the reference's:
   (records, latest, series, fingerprint filter, dotted paths) and a torn
   line raises; two threads appending never tear a line;
 - the sentinel gives the same verdicts, bands and details on seeded series
-  and on the same ledger file, and the same report payload;
-- attribution reports and their formatted lines are equal for the same
-  snapshot, tiers, wall, FLOPs and metrics.
+  and on the same ledger file, and the same report payload.
 """
 import json
 import threading
-import types
 
 import numpy as np
 import pytest
 
-from repro.obs import attribution as jattr
 from repro.obs import ledger as jledger
 from repro.obs import regress as jregress
 
 from repro_torch.core.counters import Counters
-from repro_torch.obs.attribution import attribution_report, format_attribution
 from repro_torch.obs.ledger import (
     LEDGER_KIND, LedgerSchemaError, RunLedger, config_fingerprint,
     make_record, resolve_path, validate_record,
@@ -234,55 +229,3 @@ def test_check_ledger_and_report_equal_reference(tmp_path, walls):
     assert [r.to_dict() for r in got] == [r.to_dict() for r in want]
     assert report_payload(got, path, {"window": 20}) == \
         jregress.report_payload(want, path, {"window": 20})
-
-
-# --------------------------------------------------------------- attribution
-def _bw(ssd=1e9, host_mem=10e9, host_link=5e9, peak_flops=1e12):
-    return types.SimpleNamespace(ssd=ssd, host_mem=host_mem,
-                                 host_link=host_link, peak_flops=peak_flops)
-
-
-ATTRIBUTION_CASES = {
-    "stage_busy": ({"storage_read_paged_bytes": 1e9, "busy_prefetch": 2.0},
-                   _bw(), 4.0, 0.0, None),
-    "measured_service": (
-        {"storage_read_paged_bytes": 1e9, "busy_prefetch": 2.0}, _bw(), 4.0,
-        0.0, {"storage.read_seconds": {"sum": 1.0, "count": 16},
-              "storage.write_seconds": {"sum": 0.5, "count": 4}}),
-    "wall_fallback": ({"h2d_bytes": 4e9, "d2h_bytes": 1e9,
-                       "host_gather_bytes": 1e9}, _bw(), 2.0, 1e11, None),
-    "degenerate": ({}, _bw(), 0.0, 0.0, None),
-    "every_stage": ({"storage_read_paged_bytes": 3e9,
-                     "storage_write_paged_bytes": 2e9,
-                     "host_gather_bytes": 5e9, "host_scatter_bytes": 1e9,
-                     "h2d_bytes": 7e9, "d2h_bytes": 1e9,
-                     "busy_gather": 1.5, "busy_h2d": 0.7,
-                     "busy_write_behind": 0.9},
-                    _bw(ssd=3.3e9, host_mem=11.7e9, host_link=53e9,
-                        peak_flops=67e12), 9.5, 4.8e13, None),
-}
-
-
-@pytest.mark.parametrize("case", sorted(ATTRIBUTION_CASES))
-def test_attribution_report_equals_reference(case):
-    snap, bw, wall, flops, metrics = ATTRIBUTION_CASES[case]
-    got = attribution_report(snap, bw, wall, flops=flops, metrics=metrics)
-    want = jattr.attribution_report(snap, bw, wall, flops=flops,
-                                    metrics=metrics)
-    assert got == want
-    assert format_attribution(got) == jattr.format_attribution(want)
-    for line in format_attribution(got).splitlines():
-        assert line.startswith("attribution.") and len(line.split(",")) == 3
-
-
-def test_attribution_of_port_counters_equals_reference():
-    c = Counters()
-    c.bump_many(storage_read_paged_bytes=3 << 30, h2d_bytes=5 << 30,
-                host_gather_bytes=1 << 30)
-    c.record_busy("prefetch", 1.25)
-    c.record_busy("gather", 0.5)
-    snap, metrics = c.snapshot(), c.metrics.snapshot()
-    got = attribution_report(snap, _bw(), 3.0, flops=1e12, metrics=metrics)
-    assert got == jattr.attribution_report(snap, _bw(), 3.0, flops=1e12,
-                                           metrics=metrics)
-    assert got["limiting_stage"] == "storage_read"
