@@ -20,7 +20,10 @@ and spill report and checks that the bf16 flash kernel's SASS holds
   deterministic at D = 256 too; ``scatter_add`` bitwise against the
   ``np.add.at`` oracle at small shapes (duplicates, D = 7, one row, an
   untouched tail) and against its plain version at the main-path shape,
-  and deterministic on a rerun; ``edge_softmax`` within ``(deg + 4 + |s -
+  and deterministic on a rerun, then at that shape in place in a
+  page-locked host base as the engine runs it (``scatter_add_host_``, one
+  launch, bitwise the plain version; its row's bound is the host link's,
+  each touched row once each way at the measured rate); ``edge_softmax`` within ``(deg + 4 + |s -
   m|) * 2^-23`` relative of the float64 numpy oracle at small shapes and,
   at the unit's real edges with H = 4 heads (GAT's hidden layers), within
   ``(deg_row + 4) * 2^-23`` relative of the plain version per element, and
@@ -89,7 +92,9 @@ and spill report and checks that the bf16 flash kernel's SASS holds
   layer in kernel, and ``scatter_add`` per (layer 1..L-1, unit, source
   partition whose rows are not one contiguous run); ``gather_aggregate`` in
   the forward, ``gather_rows`` in the backward and the same ``scatter_add``
-  count in kernel-fused.
+  count in kernel-fused; in both kernel modes every one of those pairs
+  added in place in a page-locked grad buffer and none through a round
+  trip (``Counters.scatter_inplace_pairs`` / ``scatter_copy_pairs``).
 - Phase F, GAT training at full width: the same graph, widths and cache
   (hidden layers 4 heads of 64, the output layer one head of 19), one epoch
   + AdamW in modes reference and kernel-fused at depth 0 and 2. Checks
@@ -787,14 +792,42 @@ def print_row(name: str, r: dict) -> None:
           f"{lib}, max abs err {r['max_abs_err']:.3e}", flush=True)
 
 
+def link_gbps(dev) -> dict:
+    """The host link's rate each way, GB/s: four 256 MB copies between
+    pinned host memory and the card, CUDA events."""
+    import torch
+
+    n = 256 << 20
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(n, dtype=torch.uint8, device=dev)
+    out = {}
+    for name, dst, src in (("h2d", card, host), ("d2h", host, card)):
+        dst.copy_(src, non_blocking=True)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(4):
+            dst.copy_(src, non_blocking=True)
+        b.record()
+        b.synchronize()
+        out[name] = 4 * n / (a.elapsed_time(b) * 1e-3) / 1e9
+    return out
+
+
 def phase_a_scatter(plan, d: int, dev) -> dict:
     """``scatter_add`` bitwise vs the numpy oracle at small shapes, then at
     phase D's largest non-contiguous grad write-back (the partition's grad
-    buffer, width ``d``) bitwise vs its plain version, with times."""
+    buffer, width ``d``) bitwise vs its plain version, on a device base and,
+    as the engine runs it, in place in a page-locked host base
+    (``scatter_add_host_``, one launch); times. The row is the host-mapped
+    launch's, against its link bound (each touched base row over the link
+    once each way, at the slower way's measured rate)."""
     import numpy as np
     import torch
 
+    from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.kernels.gather_scatter import ops, ref
+    from repro_torch.runtime.pinned import page_locked_empty
 
     rng = np.random.default_rng(0)
     for (n, R, D, hi) in [(64, 200, 16, 64), (300, 77, 48, 300),
@@ -826,24 +859,44 @@ def phase_a_scatter(plan, d: int, dev) -> dict:
           f"{q})")
     check(torch.equal(ops.scatter_add_(base.clone(), rows, values), k),
           "scatter_add deterministic (rerun bitwise)")
+    host = page_locked_empty(tuple(base.shape), np.float32)
+    host[...] = base.cpu().numpy()
+    ht = torch.from_numpy(host)
+    reset_launches()              # this launch's count starts here
+    ops.scatter_add_host_(ht, rows, values)
+    torch.cuda.synchronize()
+    check(launch_counts()["scatter_add"] == 1
+          and torch.equal(ht, p.cpu()),
+          f"scatter_add_host_ (in place in a page-locked base) bitwise vs "
+          f"plain at the same inputs, one launch")
     U = int(torch.unique(rows).numel())
     b_ms, b_by = bound(R * d * 4 + 2 * U * d * 4 + 4 * R, float(R * d))
+    link = link_gbps(dev)
+    l_ms = U * d * 4 / (min(link["h2d"], link["d2h"]) * 1e9) * 1e3
     kb, pb, lb = base.clone(), base.clone(), base.clone()
-    q = queued_ms({"scatter_add": lambda: ops.scatter_add_(kb, rows, values),
-                   "index_add_": lambda: lb.index_add_(0, rows, values)})
+    hb = torch.from_numpy(page_locked_empty(tuple(base.shape), np.float32))
+    hb.copy_(ht)
+    q = queued_ms({
+        "scatter_add_host": lambda: ops.scatter_add_host_(hb, rows, values),
+        "scatter_add": lambda: ops.scatter_add_(kb, rows, values),
+        "index_add_": lambda: lb.index_add_(0, rows, values)})
     out = dict(
-        max_abs_err=float((k - p).abs().max()),
-        ms=q["scatter_add"],
+        max_abs_err=float((ht - p.cpu()).abs().max()),
+        ms=q["scatter_add_host"],
         plain_ms=time_ms(lambda: ref.scatter_add_ref(pb, rows, values)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=q["index_add_"],
+        bound_ms=l_ms, bound_by="link bytes", library_ms=q["index_add_"],
     )
-    print(f"  scatter_add queued (median of 200 launches each, a b b a): "
-          f"kernel {q['scatter_add']:.4f} ms, index_add_ "
-          f"{q['index_add_']:.4f} ms; time_ms's 5-call means: kernel "
+    print(f"  scatter_add queued (median of 200 launches each, a b c c b "
+          f"a): in place in page-locked host memory {q['scatter_add_host']:.4f}"
+          f" ms (link bound {l_ms:.4f} ms: {U} rows x {d} each way, link "
+          f"{link['h2d']:.1f} / {link['d2h']:.1f} GB/s H2D / D2H); on a "
+          f"device base {q['scatter_add']:.4f} ms (HBM bound {b_ms:.4f} ms, "
+          f"{b_by}); index_add_ {q['index_add_']:.4f} ms; time_ms's 5-call "
+          f"means: device base "
           f"{time_ms(lambda: ops.scatter_add_(kb, rows, values)):.4f}, "
           f"index_add_ {time_ms(lambda: lb.index_add_(0, rows, values)):.4f}",
           flush=True)
-    del k, p, kb, pb, lb, base, values
+    del k, p, kb, pb, lb, hb, ht, host, base, values
     return out
 
 
@@ -1618,6 +1671,14 @@ def phase_d(plan, dev):
               f"bitwise)")
         check(launches[mode] == expect[mode],
               f"{mode}: launches {launches[mode]} == {expect[mode]}")
+        if mode != "reference":
+            pairs = [(run["counters"].scatter_inplace_pairs,
+                      run["counters"].scatter_copy_pairs)
+                     for run in r["runs"].values()]
+            check(all(p == (scatters // 2, 0) for p in pairs),
+                  f"{mode}: every scatter_add launch in place in a "
+                  f"page-locked grad buffer (in place / round trip pairs "
+                  f"{pairs} a run)")
         runs[mode] = r["runs"][0]
         del r
         torch.cuda.empty_cache()

@@ -24,6 +24,14 @@ the high-water mark the regression tests pin against the budget. (Bare
 ``get``/``prefetch`` calls without a size keep the legacy
 materialize-then-insert order and may overshoot by one block.)
 
+Reclaimers (:meth:`HostCache.add_reclaimer`) hold budget for memory that
+holds no data, parked for reuse: the engine's page-locked grad blocks
+(``repro_torch.runtime.pinned.PageLockedPool``). Their bytes are
+reservations, and :meth:`HostCache._make_room` takes them back before it
+evicts any entry, so the entries the cache keeps are the ones it would keep
+without them. The reclaimed blocks are freed by the thread that asked for
+room, after the lock is released and before the call returns.
+
 Concurrency: the pipeline runtime (repro_torch/runtime/) reads through this cache
 from prefetch/gather worker threads while the main loop scatter-accumulates
 into dirty entries. Pins are therefore *counted* (an entry may be held by
@@ -86,6 +94,9 @@ class HostCache:
         self._tick = 0
         self._lock = threading.RLock()
         self._spill_queue = None   # Optional[StorageIOQueue]
+        self._reclaimers: list = []
+        # blocks reclaimed under the lock, freed by the same thread after it
+        self._tls = threading.local()
         # obs: callback gauges poll live state only when snapshotted; the
         # hit/miss/eviction totals live on Counters fields, mirrored here so
         # a metrics dump is self-contained
@@ -164,6 +175,18 @@ class HostCache:
         """Free space for `need` bytes. Returns False if impossible."""
         if need > self.budget:
             return False
+        # phase 0: memory parked by reclaimers, which holds no data
+        for r in self._reclaimers:
+            over = self._bytes + need - self.budget
+            if over <= 0:
+                break
+            blocks = r.reclaim(over)
+            nb = sum(b.nbytes for b in blocks)
+            self._reserved -= nb
+            self._bytes -= nb
+            if blocks:
+                self._tls.__dict__.setdefault("freed", []).append(
+                    (r, blocks))
         # phase 1: evict whole layers, least-recently-used layer first
         while self._bytes + need > self.budget:
             rec = self._layer_recency()
@@ -191,6 +214,26 @@ class HostCache:
                     break
         return True
 
+    def _release_reclaimed(self) -> None:
+        """Free what this thread's ``_make_room`` reclaimed, outside the
+        lock (freeing page-locked memory waits for the card)."""
+        freed = self._tls.__dict__.pop("freed", None)
+        for r, blocks in freed or ():
+            r.release(blocks)
+
+    def add_reclaimer(self, r) -> None:
+        """``r.reclaim(nbytes)`` (called under the lock) gives up parked
+        blocks of at least ``nbytes`` where it has them, each with an
+        ``nbytes`` that it holds reserved here; ``r.release(blocks)`` frees
+        them."""
+        with self._lock:
+            self._reclaimers.append(r)
+
+    def remove_reclaimer(self, r) -> None:
+        with self._lock:
+            if r in self._reclaimers:
+                self._reclaimers.remove(r)
+
     def _insert(self, key: Key, e: _Entry) -> None:
         self._entries[key] = e
         self._bytes += e.arr.nbytes
@@ -206,13 +249,34 @@ class HostCache:
         False when the budget cannot cover the claim even after eviction —
         the caller should fall back to its uncached path without loading."""
         nbytes = int(nbytes)
+        try:
+            with self._lock:
+                if not self._make_room(nbytes):
+                    return False
+                self._claim(nbytes)
+                return True
+        finally:
+            self._release_reclaimed()
+
+    def _claim(self, nbytes: int) -> None:
+        # caller holds self._lock
+        self._reserved += nbytes
+        self._bytes += nbytes
+        self._peak = max(self._peak, self._bytes)
+        self.counters.sample_memory(self._bytes)
+
+    def reserve_idle(self, nbytes: int, then: Callable[[], None]) -> bool:
+        """:meth:`reserve` of budget that is free now, evicting and
+        reclaiming nothing; ``then`` runs under the lock once the claim is
+        made (a reclaimer parks the block it is for, so that the next
+        ``_make_room`` can take it back). Returns False, with nothing
+        claimed, when the budget has no such room."""
+        nbytes = int(nbytes)
         with self._lock:
-            if not self._make_room(nbytes):
+            if self._bytes + nbytes > self.budget:
                 return False
-            self._reserved += nbytes
-            self._bytes += nbytes
-            self._peak = max(self._peak, self._bytes)
-            self.counters.sample_memory(self._bytes)
+            self._claim(nbytes)
+            then()
             return True
 
     def unreserve(self, nbytes: int) -> None:
@@ -294,7 +358,8 @@ class HostCache:
             else:
                 self.counters.bump("cache_bypass")
             self.counters.sample_memory(self._bytes)
-            return arr
+        self._release_reclaimed()
+        return arr
 
     def prefetch(
         self,
@@ -370,6 +435,7 @@ class HostCache:
                         out[key] = False
                 missing = admitted
                 self.counters.sample_memory(self._bytes)
+        self._release_reclaimed()
         if not missing:
             return out
         try:
@@ -407,6 +473,7 @@ class HostCache:
                 self._reserved -= nb
                 self._bytes -= nb
             self.counters.sample_memory(self._bytes)
+        self._release_reclaimed()
         return out
 
     def put(
@@ -440,15 +507,16 @@ class HostCache:
                         and old.arr is not arr:
                     self._spill(old.spill_name, old.spill_row0, old.arr)
                 self._evict_silent(key)
-            if not self._make_room(arr.nbytes):
-                return False
-            self._tick += 1
-            self._insert(key, _Entry(
-                arr, self._tick, dirty=dirty, pinned=1 if pinned else 0,
-                spill_name=spill_name, spill_row0=spill_row0,
-            ))
-            self.counters.sample_memory(self._bytes)
-            return True
+            fits = self._make_room(arr.nbytes)
+            if fits:
+                self._tick += 1
+                self._insert(key, _Entry(
+                    arr, self._tick, dirty=dirty, pinned=1 if pinned else 0,
+                    spill_name=spill_name, spill_row0=spill_row0,
+                ))
+                self.counters.sample_memory(self._bytes)
+        self._release_reclaimed()
+        return fits
 
     def _evict_silent(self, key: Key) -> None:
         e = self._entries.pop(key)

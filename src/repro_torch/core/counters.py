@@ -72,6 +72,13 @@ class Counters:
     loop_write_ns: int = 0
     loop_barrier_ns: int = 0
     loop_fetch_ns: int = 0
+    # the ∇A write-back's non-contiguous (unit, source partition) pairs:
+    # added by the card in place in a page-locked grad buffer, or through
+    # a round trip of the whole buffer; the buffers' bytes either path
+    # moved across the host link, both ways (kernels/dispatch.py)
+    scatter_inplace_pairs: int = 0
+    scatter_copy_pairs: int = 0
+    scatter_link_bytes: int = 0
     # the card's time of each pass's units (runtime/accounting.py
     # DeviceClock: CUDA events, with the tracer on only), in ns
     device_fwd_ns: int = 0

@@ -61,6 +61,7 @@ from repro_torch.obs import EpochSummarizer, Tracer
 from repro_torch.runtime.config import PipelineConfig
 from repro_torch.runtime.executor import PipelineExecutor
 from repro_torch.runtime.forward import ForwardRunner, act_file
+from repro_torch.runtime.pinned import PageLockedPool
 
 
 def _grad_name(layer: int) -> str:
@@ -136,6 +137,13 @@ class SSOEngine:
             device=self.device,
         )
         self._prefetch_pins = self.fwd_runner.prefetch_pins
+        # the ∇A write-back's host grad buffers: page-locked on the card's
+        # machine, so the scatter_add kernel adds into them in place; parked
+        # between uses inside the cache's budget
+        self._grad_bufs = PageLockedPool(self.cache,
+                                         pin=self.device.type == "cuda")
+        # each unit's write-back rows on the card (one H2D ever a unit)
+        self._rows_dev: Dict[int, torch.Tensor] = {}
 
     # ----------------------------------------------------------------- loss
     @staticmethod
@@ -261,48 +269,96 @@ class SSOEngine:
         return self.storage.read_rows(name, a0, a1)
 
     def _grad_accumulate(
-        self, layer: int, q: int, rows_local: np.ndarray, values: np.ndarray
+        self, layer: int, q: int, rows_local: np.ndarray, values: np.ndarray,
+        pending: list, dev=None,
     ) -> None:
         """Scatter-accumulate ∇A^{layer} rows for source partition q (the
         paper's host write-back buffer with storage spill). The buffer is
-        pinned for the duration of the update so a concurrent pipeline-worker
-        eviction cannot flush it mid-accumulate."""
+        pinned in the cache for the duration of the update so a concurrent
+        pipeline-worker eviction cannot flush it mid-accumulate. ``dev`` is
+        ``(rows, values)`` on the card where the unit computed them: the
+        dispatch may then queue the add on the card, into the page-locked
+        buffer in place. Such an add is not waited for here: its release
+        (or, degraded, its storage write) is appended to ``pending``, which
+        :meth:`_retire_write_back` runs after one wait for the card."""
         key = ("grad", layer, q)
         a0, a1 = self.plan.ro.partition_slice(q)
         name = _grad_name(layer)
         buf = self.cache.acquire(key)
+        cached = buf is not None
         if buf is None:
-            # reserve before materializing the write-back buffer so the
-            # zeros/read never pushes host memory past the cache budget
-            nb = (a1 - a0) * self.dims[layer] * self.dtype.itemsize
-            reserved = self.cache.reserve(nb)
+            # a parked block brings its reservation; else reserve before
+            # materializing the write-back buffer so the zeros/read never
+            # pushes host memory past the cache budget
+            shape = (a1 - a0, self.dims[layer])
+            nb = shape[0] * shape[1] * self.dtype.itemsize
+            buf = self._grad_bufs.take(shape, self.dtype)
+            reserved = buf is not None or self.cache.reserve(nb)
             try:
+                if buf is None:
+                    buf = self._grad_bufs.new(shape, self.dtype)
                 if ("gradmat", layer, q) in self._materialized_grads:
-                    buf = self._io_read(name, a0, a1)
+                    buf[...] = self._io_read(name, a0, a1)
                 else:
-                    buf = np.zeros((a1 - a0, self.dims[layer]), self.dtype)
+                    buf.fill(0)
                     self._materialized_grads.add(("gradmat", layer, q))
             except BaseException:
                 if reserved:
                     self.cache.unreserve(nb)
                 raise
-            ok = reserved and self.cache.put(
+            cached = reserved and self.cache.put(
                 key, buf, dirty=True, pinned=True,
                 spill_name=name, spill_row0=a0, reserved_bytes=nb,
             )
-            if not ok:
+        queued = self.kernels.scatter_add_rows(
+            buf, rows_local, values, *(dev or (None, None)))
+
+        def retire():
+            if cached:
+                self.cache.release(key)
+            else:
                 # degraded mode: read-modify-write on storage. The write
                 # retires on the I/O queue (buf is freshly owned and never
                 # touched again); later fetches of this region go through
                 # the same FIFO, so they see it without blocking here.
-                # bump(): accumulates may race pipeline workers' counters
-                self.kernels.scatter_add_rows(buf, rows_local, values)
                 self._rt.write_rows(name, a0, buf)
-                self.counters.bump("host_scatter_bytes", values.nbytes)
-                return
-        self.kernels.scatter_add_rows(buf, rows_local, values)
-        self.cache.release(key)
-        self.counters.bump("host_scatter_bytes", values.nbytes)
+            # bump(): accumulates may race pipeline workers' counters
+            self.counters.bump("host_scatter_bytes", values.nbytes)
+
+        if queued:
+            pending.append(retire)
+        else:
+            retire()
+
+    def _retire_write_back(self, pending: list) -> None:
+        """One wait for the card's queued write-back adds (an event on the
+        current stream), then their releases and degraded writes: a buffer
+        leaves the cache's pins, and can be spilled, only once the card has
+        written it. Then the blocks of grad buffers gone meanwhile are
+        parked or unregistered (:meth:`PageLockedPool.settle`)."""
+        if pending and self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            ev.synchronize()
+        for retire in pending:
+            retire()
+        pending.clear()      # its buffers may go now, and be settled
+        self._grad_bufs.settle()
+
+    def _unit_rows_dev(self, u: WorkUnit) -> torch.Tensor:
+        """The unit's write-back rows on the card, each source partition's
+        local to it, in ``req_global`` order (int32): one H2D a unit ever."""
+        dev = self._rows_dev.get(u.p)
+        if dev is None:
+            local = np.empty(u.n_req, np.int32)
+            ptr = u.req_part_ptr
+            for q in u.req_parts:
+                s, e = int(ptr[q]), int(ptr[q + 1])
+                local[s:e] = u.req_global[s:e] - self.plan.ro.part_ptr[q]
+            dev = torch.from_numpy(local).to(self.device)
+            self.counters.bump("h2d_bytes", local.nbytes)
+            self._rows_dev[u.p] = dev
+        return dev
 
     def _grad_fetch(self, layer: int, p: int) -> np.ndarray:
         """Read ∇A^{layer} for destination partition p (padded to topo rows).
@@ -430,7 +486,10 @@ class SSOEngine:
             loop.lap("sync")
             self.counters.bump("d2h_bytes", dlog_np.nbytes)
             del lg_dev, lb_dev, dlog
-            self._grad_accumulate(L, u.p, np.arange(u.n_dst), dlog_np)
+            pending = []
+            self._grad_accumulate(L, u.p, np.arange(u.n_dst), dlog_np,
+                                  pending)
+            self._retire_write_back(pending)
             loop.lap("scatter")
         # the stream's teardown (its stage threads joined)
         loop.lap("barrier")
@@ -538,29 +597,40 @@ class SSOEngine:
                     if dW_acc is None
                     else {k: dW_acc[k] + dp[k] for k in dW_acc}
                 )
-                del dga, dp
+                del dp
                 loop.lap("launch")
                 if d2h_ev is not None:
                     d2h_ev.synchronize()
                 loop.lap("sync")
                 self.counters.bump("d2h_bytes", dga_np.nbytes)
                 if l > 0:
-                    # scatter ∇GA rows back to their source partitions
+                    # scatter ∇GA rows back to their source partitions; on
+                    # the card the non-contiguous pairs add from dga, which
+                    # stays alive until their launches are queued
                     ptr = u.req_part_ptr
+                    rows_dev = (self._unit_rows_dev(u)
+                                if dga.is_cuda and self.kernels.use_kernels
+                                else None)
+                    pending = []
                     for q in u.req_parts:
+                        s, e = int(ptr[q]), int(ptr[q + 1])
                         a0, _ = plan.ro.partition_slice(int(q))
-                        rows = u.req_global[ptr[q] : ptr[q + 1]] - a0
                         self._grad_accumulate(
-                            l, int(q), rows, dga_np[ptr[q] : ptr[q + 1]]
+                            l, int(q), u.req_global[s:e] - a0, dga_np[s:e],
+                            pending,
+                            None if rows_dev is None
+                            else (rows_dev[s:e], dga[s:e]),
                         )
+                    self._retire_write_back(pending)
                     loop.lap("scatter")
-                del dga_np
+                del dga, dga_np
             grads[l] = dW_acc
             # drop consumed grad layer l+1 from cache & storage; barrier
             # first so no queued degraded spill targets the freed file
             self.cache.drop_layer("grad", l + 1, flush=False)
             rt.drain_writes()
             st.free(_grad_name(l + 1))
+            self._grad_bufs.settle()
             if self.mode == "snapshot":
                 self.cache.drop_layer("snap", l, flush=False)
             loop.lap("barrier")
@@ -570,6 +640,7 @@ class SSOEngine:
         self.cache.drop_layer("grad", 0, flush=False)
         rt.drain_writes()
         st.free(_grad_name(0))
+        self._grad_bufs.settle()
         loop.lap("barrier")
         return total_loss, grads
 
@@ -606,6 +677,7 @@ class SSOEngine:
         try:
             self._rt.close()
         finally:
+            self._grad_bufs.close()
             # the runtime's writer is gone: later cache evictions must not
             # submit spills to a closed queue, even if close() raised
             self.cache.set_spill_queue(None)

@@ -36,10 +36,12 @@ The training half:
   family but GAT, whose recompute runs the ``edge_softmax`` kernel forward
   (its backward is the plain softmax vjp, ``EdgeSoftmax``).
 - The ∇A write-back :meth:`KernelDispatch.scatter_add_rows` dispatches by
-  shape: a contiguous row run (the loss layer's ``arange``, dense regather
-  runs), or a reference mode, takes the host slice-add / ``reduceat`` path
-  (:func:`scatter_add_rows_ref`); any other row set runs the ``scatter_add``
-  kernel on a device copy of the partition's grad buffer, which is copied
+  what its input shows: a contiguous row run (the loss layer's ``arange``,
+  dense regather runs), or a reference mode, takes the host slice-add /
+  ``reduceat`` path (:func:`scatter_add_rows_ref`); any other row set runs
+  the ``scatter_add`` kernel — in place in the partition's grad buffer when
+  that buffer is page-locked and the values are on the card (the engine's
+  case on the card), else on a device copy of the buffer, which is copied
   back (unsorted rows are stable-sorted first). Bitwise equal on the
   engine's sorted duplicate-free row sets.
 
@@ -47,12 +49,13 @@ Every dispatched kernel call records a span ``kernel:<name>.<path>``
 (``path`` = ``cuda`` or ``ref``) through ``Counters.record_phase``: on the
 exported timeline, outside the stage busy/stall maps. On a CUDA device the
 span of a forward or backward kernel is the host-side launch time (the
-kernels run asynchronously); the scatter's span includes its blocking
-copies.
+kernels run asynchronously), as is the span of an in-place scatter; the
+span of a scatter's round trip includes its blocking copies.
 """
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -63,6 +66,12 @@ from repro_torch.kernels.gather_scatter import ops
 from repro_torch.models.gnn.layers import LocalTopo, apply_vjp
 
 VALID_MODES = ("auto", "reference", "kernel", "kernel-fused")
+
+
+def _page_locked(buf: np.ndarray) -> bool:
+    """``buf`` lies in page-locked host memory, which the card reaches in
+    place (``Tensor.is_pinned``: ``cudaPointerGetAttributes``)."""
+    return torch.cuda.is_available() and torch.from_numpy(buf).is_pinned()
 
 
 def _contiguous_run(rows: np.ndarray) -> bool:
@@ -228,28 +237,61 @@ class KernelDispatch:
 
     # ------------------------------------------------------- grad write-back
     def scatter_add_rows(
-        self, buf: np.ndarray, rows: np.ndarray, values: np.ndarray
-    ) -> None:
+        self, buf: np.ndarray, rows: np.ndarray, values: np.ndarray,
+        dev_rows: Optional[torch.Tensor] = None,
+        dev_values: Optional[torch.Tensor] = None,
+    ) -> bool:
         """In-place ``buf[rows] += values`` — the backward's ∇A write-back
-        into a partition's host grad buffer. Kernel path: the ``scatter_add``
-        kernel on a device copy of ``buf`` (unsorted rows stable-sorted
-        first, so duplicates still add in input order), copied back into
-        ``buf``. Both paths are bitwise equal on the engine's sorted
-        duplicate-free row sets."""
+        into a partition's host grad buffer. ``values`` are on the host;
+        ``dev_values`` (and optionally ``dev_rows``, int32) are the same on
+        the card, where the backward computed them. The path follows what
+        the input shows:
+
+        - a reference mode or a contiguous row run: the host slice-add /
+          ``reduceat`` (:func:`scatter_add_rows_ref`);
+        - a page-locked ``buf`` with ``dev_values``: the ``scatter_add``
+          kernel adds into ``buf`` in place through its mapped address
+          (:func:`ops.scatter_add_host_`), only the touched rows crossing
+          the link. The launch is queued and not waited for: returns True,
+          and the caller waits on the current stream before it reads or
+          releases ``buf``;
+        - any other row set (a pageable ``buf``): the round trip, the kernel
+          on a device copy of ``buf`` copied back.
+
+        Unsorted rows are stable-sorted first, so duplicates still add in
+        input order. Every path is bitwise equal on the engine's sorted
+        duplicate-free row sets. ``Counters.scatter_inplace_pairs`` /
+        ``scatter_copy_pairs`` count the calls that took the last two paths
+        and ``scatter_link_bytes`` the bytes of ``buf`` they moved across
+        the link, both ways."""
         n = rows.size
         if n == 0:
-            return
+            return False
         t0 = time.perf_counter()
         if not self.use_kernels or _contiguous_run(rows):
             # a contiguous run is a slice add on every path and beats a
             # device round trip — shape-based dispatch
             scatter_add_rows_ref(buf, rows, values)
             self._record("scatter_add", "ref", t0)
-            return
+            return False
+        order = None
         if n > 1 and not bool(np.all(rows[1:] >= rows[:-1])):
             order = np.argsort(rows, kind="stable")
             rows = rows[order]
             values = values[order]
+        if dev_values is not None and _page_locked(buf):
+            dev = dev_values.device
+            if order is not None:
+                dev_values = dev_values[torch.from_numpy(order).to(dev)]
+            if order is not None or dev_rows is None:
+                dev_rows = torch.from_numpy(
+                    np.ascontiguousarray(rows, np.int32)).to(dev)
+            ops.scatter_add_host_(torch.from_numpy(buf), dev_rows, dev_values)
+            distinct = 1 + int(np.count_nonzero(rows[1:] != rows[:-1]))
+            self._count_pair("scatter_inplace_pairs",
+                             2 * distinct * buf.shape[1] * buf.itemsize)
+            self._span("scatter_add", dev_values, t0)
+            return True
         dev = self.device
         base = torch.from_numpy(buf).to(dev, copy=True)
         ops.scatter_add_(
@@ -258,4 +300,12 @@ class KernelDispatch:
             torch.from_numpy(np.ascontiguousarray(values)).to(dev),
         )
         np.copyto(buf, base.cpu().numpy())
+        self._count_pair("scatter_copy_pairs",
+                         2 * buf.nbytes if base.is_cuda else 0)
         self._span("scatter_add", base, t0)
+        return False
+
+    def _count_pair(self, field: str, link_bytes: int) -> None:
+        if self.counters is not None:
+            self.counters.bump_many(**{field: 1,
+                                       "scatter_link_bytes": link_bytes})

@@ -81,6 +81,24 @@
 //   both pointers are 16 B aligned, one float otherwise), threadIdx.y over
 //   value rows. The TPU wrapper's 128-lane column padding has no
 //   counterpart: any D is taken.
+//
+// scatter_add_host_f32 also replaces scatter_add_pallas, where the engine
+// runs the write-back: the same add, in the same order, but base is a
+// page-locked host buffer (the partition's grad buffer in the host cache),
+// which the kernel reads and writes in place through its mapped device
+// address; rows and values are on the card (the unit's ∇GA, which the
+// backward computed there). So the buffer never crosses the link whole.
+//   Bound: bytes over the host link, not HBM. Each of the U touched base
+//   rows crosses it once each way (2*U*D*4 bytes); values and row ids are
+//   read from HBM. A read over the link takes microseconds to return.
+//   Design: one warp per value row; the warp whose row starts a segment
+//   owns it, as above, and its lanes first start all their base loads of a
+//   chunk of kHostLoads 16-byte columns a lane (kHostLoads * 512 bytes a
+//   warp in flight, a whole 1,024-wide row at once), then add the
+//   segment's values in input order (__fadd_rn) and store each column
+//   once. Neighbouring lanes touch neighbouring 16 bytes, so each warp
+//   load is one 512-byte run of a row. Eight warps a block, a block per
+//   eight value rows: a write-back pair's rows are all in flight at once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -426,6 +444,56 @@ __global__ void scatter_add_scalar_kernel(float* __restrict__ base,
   }
 }
 
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+
+__device__ __forceinline__ float4 add_rn(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+// base is the device-mapped address of page-locked host memory: each warp
+// owns one segment and keeps kHostLoads loads a lane in flight over the link
+constexpr int kHostLoads = 8;
+constexpr int kHostWarps = 8;
+
+template <typename V>
+__global__ void scatter_add_host_kernel(V* __restrict__ base,
+                                        const int* __restrict__ rows,
+                                        const V* __restrict__ values,
+                                        long long R, long long cols) {
+  const int lane = threadIdx.x & 31;
+  const long long r = (long long)blockIdx.x * kHostWarps + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const int row = segment_row(rows, r);
+  if (row < 0) return;
+  long long end = r + 1;
+  while (end < R && rows[end] == row) ++end;
+  V* dst = base + (long long)row * cols;
+  for (long long c0 = lane; c0 < cols; c0 += 32 * kHostLoads) {
+    V acc[kHostLoads];
+#pragma unroll
+    for (int k = 0; k < kHostLoads; ++k) {
+      const long long c = c0 + 32 * k;
+      if (c < cols) acc[k] = dst[c];
+    }
+    for (long long j = r; j < end; ++j) {
+      const V* v = values + j * cols;
+#pragma unroll
+      for (int k = 0; k < kHostLoads; ++k) {
+        const long long c = c0 + 32 * k;
+        if (c < cols) acc[k] = add_rn(acc[k], v[c]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kHostLoads; ++k) {
+      const long long c = c0 + 32 * k;
+      if (c < cols) dst[c] = acc[k];
+    }
+  }
+}
+
 // threads along the columns: a warp multiple covering `cols`, at most kThreads
 int col_threads(long long cols) {
   long long t = ((cols + 31) / 32) * 32;
@@ -532,6 +600,33 @@ extern "C" int scatter_add_f32(float* base, const int* rows,
   } else {
     scatter_add_scalar_kernel<<<(unsigned)grid, block, 0, stream>>>(
         base, rows, values, R, cols);
+  }
+  return (int)cudaGetLastError();
+}
+
+// base_host is page-locked host memory; the kernel reaches it through its
+// mapped device address. A pageable or unmapped base is refused with the
+// error of cudaHostGetDevicePointer (cleared, so a later launch's
+// cudaGetLastError does not report it).
+extern "C" int scatter_add_host_f32(float* base_host, const int* rows,
+                                    const float* values, long long R,
+                                    long long D, cudaStream_t stream) {
+  if (R <= 0 || D <= 0) return (int)cudaGetLastError();
+  void* mapped = nullptr;
+  const cudaError_t err = cudaHostGetDevicePointer(&mapped, base_host, 0);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  float* base = static_cast<float*>(mapped);
+  const long long grid = (R + kHostWarps - 1) / kHostWarps;
+  if (D % 4 == 0 && aligned16(base, values)) {
+    scatter_add_host_kernel<float4><<<(unsigned)grid, 32 * kHostWarps, 0, stream>>>(
+        reinterpret_cast<float4*>(base), rows,
+        reinterpret_cast<const float4*>(values), R, D / 4);
+  } else {
+    scatter_add_host_kernel<float><<<(unsigned)grid, 32 * kHostWarps, 0, stream>>>(
+        base, rows, values, R, D);
   }
   return (int)cudaGetLastError();
 }

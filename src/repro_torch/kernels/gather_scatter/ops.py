@@ -59,6 +59,8 @@ def _lib():
         lib.gather_aggregate_f32.restype = ctypes.c_int
         lib.scatter_add_f32.argtypes = [_P, _P, _P, _I64, _I64, _P]
         lib.scatter_add_f32.restype = ctypes.c_int
+        lib.scatter_add_host_f32.argtypes = [_P, _P, _P, _I64, _I64, _P]
+        lib.scatter_add_host_f32.restype = ctypes.c_int
         lib.heavy_rows_plan.argtypes = [_P, _I64, _I64, _I64, _P, _P, _I64, _P]
         lib.heavy_rows_plan.restype = ctypes.c_int
         _bound = lib
@@ -216,6 +218,52 @@ def scatter_add_(base: torch.Tensor, rows: torch.Tensor,
     _check("rows", rows, torch.int32, 1, dev)
     _check("values", values, torch.float32, 2, dev)
     torch.ops.repro_torch.scatter_add_(base, rows, values)
+    return base
+
+
+def scatter_add_host_(base: torch.Tensor, rows: torch.Tensor,
+                      values: torch.Tensor) -> torch.Tensor:
+    """:func:`scatter_add_` into a ``base`` that lies in page-locked host
+    memory: the ``scatter_add`` kernel reads and writes the touched rows of
+    ``base`` in place through its mapped device address, so only those rows
+    cross the link. ``rows`` and ``values`` are on the card; the launch is
+    queued on the values' device's current stream and not waited for, so
+    the caller synchronises before it reads ``base`` on the host. Same
+    order and bits as :func:`scatter_add_`.
+
+    Raises for a ``base`` that is on the card or pageable and for values on
+    the CPU: there is no plain version to fall back to."""
+    if base.dim() != 2 or rows.dim() != 1 or values.dim() != 2:
+        raise ValueError(
+            f"scatter_add_host_ wants base (N, D), rows (R,) and values "
+            f"(R, D); got {tuple(base.shape)}, {tuple(rows.shape)} and "
+            f"{tuple(values.shape)}"
+        )
+    R, D = rows.shape[0], base.shape[1]
+    if tuple(values.shape) != (R, D):
+        raise ValueError(
+            f"values {tuple(values.shape)} do not match rows ({R},) and "
+            f"base width {D}"
+        )
+    if base.is_cuda or not values.is_cuda:
+        raise ValueError(
+            f"scatter_add_host_ wants base in host memory and values on the "
+            f"card; got base on {base.device}, values on {values.device}"
+        )
+    _check("base", base, torch.float32, 2, base.device)
+    if not base.is_pinned():
+        raise ValueError("base is pageable: the card cannot reach it in place")
+    dev = values.device
+    _check("rows", rows, torch.int32, 1, dev)
+    _check("values", values, torch.float32, 2, dev)
+    if R == 0 or D == 0:
+        return base
+    err = _lib().scatter_add_host_f32(
+        base.data_ptr(), rows.data_ptr(), values.data_ptr(), R, D,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "scatter_add_host")
+    LAUNCHES["scatter_add"] += 1
     return base
 
 

@@ -21,7 +21,10 @@ from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.embedding_bag import ref as eb_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.core.counters import Counters
+from repro_torch.kernels.dispatch import KernelDispatch, scatter_add_rows_ref
 from repro_torch.kernels.gather_scatter import ops, ref
+from repro_torch.runtime.pinned import PageLockedPool, page_locked_empty
 
 
 @pytest.fixture()
@@ -242,6 +245,183 @@ def test_cuda_scatter_add_refuses_bad_inputs(cuda_dev):
         ops.scatter_add_(b, rows.cpu(), torch.zeros(2, 4, device=cuda_dev))
     with pytest.raises(ValueError, match="contiguous"):
         ops.scatter_add_(b.t(), rows, torch.zeros(2, 4, device=cuda_dev))
+
+
+def _page_locked_base(base):
+    """``base`` copied into page-locked host memory of its own pages (as
+    the engine's grad buffers are)."""
+    arr = page_locked_empty(base.shape, base.dtype)
+    arr[...] = base
+    return arr
+
+
+def _engine_rows(rng, n, r):
+    """A write-back pair's rows: sorted, duplicate-free, not one run."""
+    return np.sort(rng.choice(n, r, replace=False)).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r,D,rows", [
+    (4096, 900, 1024, "engine"),   # a GAT write-back pair
+    (4096, 900, 256, "engine"),    # a GCN one
+    (300, 77, 48, "engine"),
+    (257, 511, 1024, "dups"),      # sorted with duplicates
+    (40, 90, 7, "dups"),           # D % 4 != 0: the scalar kernel
+    (10, 1, 7, "engine"),
+])
+def test_cuda_scatter_add_host_bitwise_vs_oracle(cuda_dev, n, r, D, rows,
+                                                 rng):
+    base = rng.standard_normal((n, D), dtype=np.float32)
+    idx = (_engine_rows(rng, n, r) if rows == "engine"
+           else np.sort(rng.integers(0, n // 2 + 1, r)).astype(np.int32))
+    values = rng.standard_normal((r, D), dtype=np.float32)
+    buf = _page_locked_base(base)
+    assert torch.from_numpy(buf).is_pinned()
+    before = ops.LAUNCHES["scatter_add"]
+    t = torch.from_numpy(buf)
+    assert ops.scatter_add_host_(t, *_on(cuda_dev, idx, values)) is t
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["scatter_add"] == before + 1
+    want = ref.scatter_add_ref_np(base, idx, values)
+    np.testing.assert_array_equal(buf, want)
+    if rows == "engine":
+        host = base.copy()
+        scatter_add_rows_ref(host, idx, values)
+        np.testing.assert_array_equal(buf, host)
+    del t, buf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["engine", "unsorted_dups", "contiguous"])
+def test_cuda_dispatch_adds_in_place_into_page_locked_buffer(cuda_dev, case,
+                                                             rng):
+    """Through ``KernelDispatch.scatter_add_rows``: a page-locked buffer
+    with values on the card is added in place (queued: the caller waits),
+    unsorted rows with duplicates in input order (bitwise ``np.add.at``),
+    and a contiguous run on the host; the counters say which."""
+    n, D = 500, 64
+    base = rng.standard_normal((n, D), dtype=np.float32)
+    idx = {"engine": _engine_rows(rng, n, 120),
+           "unsorted_dups": rng.integers(0, 40, 200),
+           "contiguous": np.arange(30, 90)}[case]
+    values = (rng.standard_normal((idx.size, D)) * 1e3).astype(np.float32)
+    buf = _page_locked_base(base)
+    c = Counters()
+    kd = KernelDispatch("kernel", c, device=cuda_dev)
+    queued = kd.scatter_add_rows(buf, idx, values, None,
+                                 torch.from_numpy(values).to(cuda_dev))
+    torch.cuda.synchronize()
+    assert queued == (case != "contiguous")
+    assert c.scatter_inplace_pairs == int(queued)
+    assert c.scatter_copy_pairs == 0
+    want = ref.scatter_add_ref_np(base, idx, values)
+    if case == "contiguous":
+        want = base.copy()
+        scatter_add_rows_ref(want, idx, values)
+    np.testing.assert_array_equal(buf, want)
+    assert c.scatter_link_bytes == (
+        2 * np.unique(idx).size * D * 4 if queued else 0)
+    del buf
+
+
+@pytest.mark.cuda
+def test_cuda_scatter_add_host_refuses_bad_inputs(cuda_dev):
+    rows = torch.zeros(2, dtype=torch.int32, device=cuda_dev)
+    vals = torch.zeros(2, 4, device=cuda_dev)
+    with pytest.raises(ValueError, match="pageable"):
+        ops.scatter_add_host_(torch.zeros(4, 4), rows, vals)
+    buf = _page_locked_base(np.zeros((4, 4), np.float32))
+    with pytest.raises(ValueError, match="host memory"):
+        ops.scatter_add_host_(torch.from_numpy(buf), rows.cpu(), vals.cpu())
+    with pytest.raises(ValueError, match="host memory"):
+        ops.scatter_add_host_(torch.zeros(4, 4, device=cuda_dev), rows, vals)
+    with pytest.raises(TypeError):
+        ops.scatter_add_host_(torch.from_numpy(buf), rows.long(), vals)
+    del buf
+
+
+@pytest.mark.cuda
+def test_cuda_page_locked_pool_reuses_exact_blocks_inside_the_budget(
+        cuda_dev, tmp_path):
+    """Blocks of their exact size (no power of two), page-locked; a block
+    whose array and views went is parked inside the cache's budget, served
+    again to a request of the same bytes, and taken back (unregistered)
+    when the cache needs its room."""
+    from repro_torch.core.cache import HostCache
+    from repro_torch.core.storage import StorageTier
+
+    c = Counters()
+    st = StorageTier(str(tmp_path), counters=c)
+    nb = 1000 * 257 * 4
+    hc = HostCache(3 * nb, st, c)
+    pool = PageLockedPool(hc, pin=True)
+    assert hc.reserve(nb)
+    a = pool.new((1000, 257), np.float32)
+    a.fill(0)
+    assert torch.from_numpy(a).is_pinned()
+    assert pool.bytes == a.nbytes == nb
+    addr = a.__array_interface__["data"][0]
+    view = a[10:20]
+    assert hc.put(("grad", 1, 0), a, dirty=True, reserved_bytes=nb)
+    hc.drop(("grad", 1, 0), flush=False)
+    del a
+    pool.settle()
+    assert pool.parked_bytes == 0                 # the view keeps the block
+    del view
+    pool.settle()
+    assert pool.parked_bytes == nb == hc.used_bytes
+    b = pool.take((257, 1000), np.float32)        # same bytes: a's block
+    assert b.__array_interface__["data"][0] == addr
+    assert torch.from_numpy(b).is_pinned()
+    assert pool.parked_bytes == 0 and hc.used_bytes == nb
+    hc.unreserve(nb)
+    del b
+    pool.settle()
+    assert pool.parked_bytes == nb
+    assert hc.reserve(3 * nb)                     # takes the parked block
+    assert pool.bytes == pool.parked_bytes == 0
+    assert pool.peak_bytes == nb
+    hc.unreserve(3 * nb)
+    pool.close()
+    st.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["gat", "gcn"])
+def test_cuda_epoch_in_place_write_back_equals_round_trip(cuda_dev, model,
+                                                          monkeypatch):
+    """A whole epoch (serial and pipelined) with the write-back added in
+    place in page-locked buffers gives the gradients of the round trip
+    through device copies of the buffers, bitwise; a 1 MB cache makes some
+    buffers spill and be read back."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.train import _train_smoke
+
+    def run():
+        ops.reset_launches()
+        out = _train_smoke(model, 2, kernels="kernel", dense_check=False,
+                           n_nodes=3000, cache_mb=1, dims=[24, 64, 64, 8],
+                           device=cuda_dev)
+        return out, dict(ops.LAUNCHES)
+
+    inplace, n_in = run()
+    monkeypatch.setattr(dispatch, "_page_locked", lambda buf: False)
+    copy, n_copy = run()
+    assert inplace["pipeline_matches_serial"] and copy["pipeline_matches_serial"]
+    assert inplace["loss"] == copy["loss"]
+    for d in inplace["runs"]:
+        a, b = inplace["runs"][d], copy["runs"][d]
+        assert a["counters"].scatter_inplace_pairs > 0
+        assert a["counters"].scatter_copy_pairs == 0
+        assert b["counters"].scatter_copy_pairs == \
+            a["counters"].scatter_inplace_pairs
+        assert b["counters"].scatter_inplace_pairs == 0
+        assert a["losses"] == b["losses"]
+        for ga, gb in zip(a["grads"], b["grads"]):
+            for la, lb in zip(ga, gb):
+                for k in la:
+                    assert torch.equal(la[k], lb[k]), k
+    assert n_in["scatter_add"] == n_copy["scatter_add"] > 0
 
 
 def _softmax_inputs(rng, n, E, H, hub=0):
