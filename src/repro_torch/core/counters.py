@@ -64,14 +64,22 @@ class Counters:
     slow_lane_pins: int = 0   # prefetches forced cache-resident by slow lane
     # the compute thread's states (runtime/accounting.py LoopClock), in ns:
     # enqueuing a unit's device work, blocked on the card, the ∇A
-    # write-back, bypass writes and retires, layer ends, and the stages the
-    # serial path runs inline; its waits for a unit are compute_wait_* stalls
+    # write-back, bypass writes and retires, layer ends, the stages the
+    # serial path runs inline, and adding a side input's cotangent (GCNII's
+    # ∇H^0); its waits for a unit are compute_wait_* stalls
     loop_launch_ns: int = 0
     loop_sync_ns: int = 0
     loop_scatter_ns: int = 0
     loop_write_ns: int = 0
     loop_barrier_ns: int = 0
     loop_fetch_ns: int = 0
+    loop_residual_ns: int = 0
+    # a side input's staging (GCNII's H^0 rows of each unit's own
+    # vertices, runtime/forward.py): the rows staged, and the bytes read
+    # from the storage tier for it alone (cache misses of a block no
+    # gather of the unit reads)
+    residual_rows: int = 0
+    residual_read_bytes: int = 0
     # the ∇A write-back's non-contiguous (unit, source partition) pairs:
     # added by the card in place in a page-locked grad buffer, or through
     # a round trip of the whole buffer; the buffers' bytes either path

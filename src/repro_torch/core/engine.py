@@ -16,6 +16,13 @@ Both engines drive the same layer functions (models/gnn/layers.py), so the
 gradients equal whole-graph autograd up to float reassociation — the paper's
 "no algorithm change" property (Appendix W).
 
+A family whose modules read a side input (``GNNSpec.side_input``: GCNII's
+convolutions read ``H^0``, layer 1's activation) trains in regather mode
+only. The runner stages the side rows beside every unit's gather in both
+passes; the vjp's cotangent for them (``∇H^0``, the unit's own rows) is
+added into grad 1, which therefore stays live through the whole backward
+until layer 0 consumes it.
+
 The forward pass is the shared
 :class:`repro_torch.runtime.forward.ForwardRunner` (the layer pass of
 storage-offloaded inference); training hooks its snapshot persist into the
@@ -60,7 +67,7 @@ from repro_torch.models.gnn.layers import GNNSpec, apply_vjp
 from repro_torch.obs import EpochSummarizer, Tracer
 from repro_torch.runtime.config import PipelineConfig
 from repro_torch.runtime.executor import PipelineExecutor
-from repro_torch.runtime.forward import ForwardRunner, act_file
+from repro_torch.runtime.forward import ForwardRunner, act_file, split_side
 from repro_torch.runtime.pinned import PageLockedPool
 
 
@@ -96,6 +103,13 @@ class SSOEngine:
             )
         if mode not in ("regather", "snapshot"):
             raise ValueError(f"mode={mode!r} not in ('regather', 'snapshot')")
+        if mode == "snapshot" and any(
+                spec.side_layer(l, len(dims) - 1) is not None
+                for l in range(len(dims) - 1)):
+            raise ValueError(
+                f"{spec.name!r} reads a side input (its layers read an "
+                f"earlier layer's activation): it trains in regather mode "
+                f"only, not in snapshot mode")
         self.spec = spec
         self.plan = plan
         self.dims = list(dims)
@@ -345,6 +359,18 @@ class SSOEngine:
         pending.clear()      # its buffers may go now, and be settled
         self._grad_bufs.settle()
 
+    def _side_accumulate(self, layer: int, u: WorkUnit,
+                         values: np.ndarray) -> None:
+        """Add unit ``u``'s side-input cotangent (GCNII's ∇H^0: the rows of
+        its own vertices, landed on the host) into grad ``layer``: one
+        contiguous run of its own partition's buffer, which the write-back
+        adds on the host (:meth:`_grad_accumulate`)."""
+        self.counters.bump("d2h_bytes", values.nbytes)
+        pending = []
+        self._grad_accumulate(layer, u.p, np.arange(u.n_dst), values,
+                              pending)
+        self._retire_write_back(pending)
+
     def _unit_rows_dev(self, u: WorkUnit) -> torch.Tensor:
         """The unit's write-back rows on the card, each source partition's
         local to it, in ``req_global`` order (int32): one H2D a unit ever."""
@@ -385,20 +411,24 @@ class SSOEngine:
     def _stage_bwd(self, l: int, u: WorkUnit, ga, d_out, stacked: bool):
         """H2D of one backward unit's inputs on the calling thread's current
         stream (the transfer stream on the transfer thread): ``∇A^{l+1}``
-        first, then GA or (the row map and) the partition stack, whose event
-        covers every copy before it. Each pooled buffer goes back to the
-        pool with its copy's event. Returns ``((staged, event), d_out_dev)``
-        with ``staged`` = ``ga_dev`` or ``(stack_dev, idx_dev)``."""
+        first, the side rows if any, then GA or (the row map and) the
+        partition stack, whose event covers every copy before it. Each
+        pooled buffer goes back to the pool with its copy's event. Returns
+        ``((staged, side_dev, event), d_out_dev)`` with ``staged`` =
+        ``ga_dev`` or ``(stack_dev, idx_dev)``."""
         runner = self.fwd_runner
         if d_out is None:
             d_out = self._grad_fetch(l + 1, u.p)
         do_dev, _ = runner.stage_h2d(d_out)
         if stacked:
             idx_dev = runner.idx_dev(u)
+            side_dev = runner.stage_side(ga.side)
             stack_dev, ev = runner.stage_h2d(ga.stack)
-            return ((stack_dev, idx_dev), ev), do_dev
+            return ((stack_dev, idx_dev), side_dev, ev), do_dev
+        ga, side = split_side(ga)
+        side_dev = runner.stage_side(side)
         ga_dev, ev = runner.stage_h2d(ga)
-        return (ga_dev, ev), do_dev
+        return (ga_dev, side_dev, ev), do_dev
 
     # ------------------------------------------------------------- backward
     def backward(self, params, labels_reordered: np.ndarray):
@@ -507,6 +537,7 @@ class SSOEngine:
         for l in range(L - 1, -1, -1):
             t_layer = time.perf_counter()
             activate = l < L - 1
+            side = self.spec.side_layer(l, L)
             if use_stacked:
                 bwd = self.kernels.fused_backward_fn(self.spec, activate)
             else:
@@ -537,7 +568,8 @@ class SSOEngine:
                 gather_stage, prefetch_stage = "snap_fetch", "snap_prefetch"
             # aux stage: fetch ∇A^{l+1} on the gather workers. Safe to run
             # ahead — grad layer l+1 was fully accumulated before this
-            # stream started, and this stream only scatters into layer l.
+            # stream started, and this stream only scatters into layer l
+            # and the side layer (1, never l+1: module 0 reads no side).
             aux_fn = (
                 (lambda u, _l=l: self._grad_fetch(_l + 1, u.p))
                 if (self.pipeline.enabled and self.pipeline.aux_fetch)
@@ -551,8 +583,8 @@ class SSOEngine:
                 with runner._xfer_ctx():
                     staged, do_dev = self._stage_bwd(_l, u, ga, d_out,
                                                      use_stacked)
-                if staged[1] is not None:
-                    staged[1].synchronize()
+                if staged[2] is not None:
+                    staged[2].synchronize()
                 return staged, do_dev
 
             for u, ga, d_out in rt.run_stream(
@@ -565,33 +597,38 @@ class SSOEngine:
                 xfer_up_stage="xfer_wait_up_bwd",
             ):
                 if use_xfer:
-                    (staged, ev), do_dev = ga, d_out
+                    (staged, side_dev, ev), do_dev = ga, d_out
                 else:
                     # serial staging on the compute stream (the aux fetch,
                     # when off, runs inline here too)
-                    (staged, ev), do_dev = self._stage_bwd(
+                    (staged, side_dev, ev), do_dev = self._stage_bwd(
                         l, u, ga, d_out, use_stacked
                     )
                     loop.lap("fetch")
                 ga = d_out = None
                 if use_stacked:
                     stack_dev, idx_dev = staged
-                    runner._await(ev, stack_dev, idx_dev, do_dev)
+                    runner._await(ev, stack_dev, idx_dev, do_dev, side_dev)
                     dclock.start()
-                    dp, dga = bwd(params[l], stack_dev, idx_dev, u.topo,
-                                  do_dev)
+                    dp, dga, *dside = bwd(params[l], stack_dev, idx_dev,
+                                          u.topo, do_dev, side_dev)
                     del stack_dev, idx_dev
                 else:
-                    runner._await(ev, staged, do_dev)
+                    runner._await(ev, staged, do_dev, side_dev)
                     dclock.start()
-                    dp, dga = bwd(params[l], staged, u.topo, do_dev)
+                    dp, dga, *dside = bwd(params[l], staged, u.topo, do_dev,
+                                          side=side_dev)
                 dclock.stop("bwd")
                 # the unit's device inputs are dead: free them before the
                 # next unit stages (layer 0's GA is the widest)
-                staged = do_dev = None
-                # start the D2H copy of ∇GA; it lands under the dW
-                # accumulate
+                staged = do_dev = side_dev = None
+                # start the D2H copies of ∇GA (and of the side input's
+                # cotangent); they land under the dW accumulate
                 dga_np, d2h_ev = rt._start_d2h(dga[: u.n_req])
+                dside_np = side_ev = None
+                if dside:
+                    dside_np, side_ev = rt._start_d2h(dside[0][: u.n_dst])
+                    dside = None
                 dW_acc = (
                     dp
                     if dW_acc is None
@@ -599,8 +636,9 @@ class SSOEngine:
                 )
                 del dp
                 loop.lap("launch")
-                if d2h_ev is not None:
-                    d2h_ev.synchronize()
+                for ev in (d2h_ev, side_ev):
+                    if ev is not None:
+                        ev.synchronize()
                 loop.lap("sync")
                 self.counters.bump("d2h_bytes", dga_np.nbytes)
                 if l > 0:
@@ -624,6 +662,10 @@ class SSOEngine:
                     self._retire_write_back(pending)
                     loop.lap("scatter")
                 del dga, dga_np
+                if dside_np is not None:
+                    self._side_accumulate(side, u, dside_np)
+                    del dside_np
+                    loop.lap("residual")
             grads[l] = dW_acc
             # drop consumed grad layer l+1 from cache & storage; barrier
             # first so no queued degraded spill targets the freed file

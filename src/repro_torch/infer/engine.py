@@ -15,7 +15,9 @@ Being forward-only buys three things training can't have:
   ``l-1``'s activation file is freed (and its cached blocks dropped) as
   soon as layer ``l`` finishes, so at most two layer files plus the input
   exist at once — ≈half the training forward's storage footprint for deep
-  models (``Counters.storage_peak_alloc_bytes`` measures it).
+  models (``Counters.storage_peak_alloc_bytes`` measures it). A layer that
+  later modules read as their side input (GCNII's ``H^0``) is freed after
+  the last of them, so it is a third file while they run.
 - **Reduced-precision storage** (``store_dtype=np.float16``): on-storage
   activations and the served embedding table are stored at half width;
   gathers upcast to the fp32 compute dtype, bypass writes downcast. Halves
@@ -86,6 +88,13 @@ class OffloadedInference:
             np.dtype(store_dtype) if store_dtype is not None else self.dtype
         )
         self.free_consumed = free_consumed
+        # the module after which each activation layer has no reader left:
+        # its own consumer, or the last module that reads it as a side input
+        self._last_read = {j: j for j in range(self.n_layers)}
+        for i in range(self.n_layers):
+            k = spec.side_layer(i, self.n_layers)
+            if k is not None:
+                self._last_read[k] = max(self._last_read[k], i)
         self.keep_input = keep_input
         self.final_name = final_name
         if pipeline is None:
@@ -166,11 +175,15 @@ class OffloadedInference:
                 self.runner.run_layer(
                     l, params[l], activate=not last, out_name=name_out,
                 )
-                if self.free_consumed and (l > 0 or not self.keep_input):
-                    # layer l's activations were fully consumed by the
+                if not self.free_consumed:
+                    continue
+                for j, last_l in self._last_read.items():
+                    if last_l != l or (j == 0 and self.keep_input):
+                        continue
+                    # layer j's activations were fully consumed by the
                     # gathers above (run_layer drained all writes): truncate
-                    self.cache.drop_layer(self.runner.act_kind, l, flush=False)
-                    st.free(act_file(l))
+                    self.cache.drop_layer(self.runner.act_kind, j, flush=False)
+                    st.free(act_file(j))
                     loop.lap("barrier")
             # tracer on, on the card: the units' device times (one event
             # wait)

@@ -63,7 +63,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.edge_softmax.ops import EdgeSoftmax
 from repro_torch.kernels.gather_scatter import ops
-from repro_torch.models.gnn.layers import LocalTopo, apply_vjp
+from repro_torch.models.gnn.layers import LocalTopo, apply_vjp, apply_with
 
 VALID_MODES = ("auto", "reference", "kernel", "kernel-fused")
 
@@ -169,26 +169,28 @@ class KernelDispatch:
         return out
 
     def fused_forward_fn(self, spec, activate: bool):
-        """``f(layer, stack, idx, topo) -> out`` for one forward layer over
-        the staged partition stack. Default: regather on the device
-        (:meth:`gather_rows`) and run the unchanged ``apply_layer`` — same
-        ``GA_p``, same bits as the reference path. In ``"kernel-fused"`` a
-        family's ``spec.fused_forward`` (GCN: the one-kernel
-        gather+aggregate) or ``spec.fused_apply`` (GAT: the kernel softmax)
-        takes its place."""
+        """``f(layer, stack, idx, topo, side=None) -> out`` for one forward
+        layer over the staged partition stack (``side``: the staged rows of
+        the layer's side input, ``GNNSpec.side_input``). Default: regather
+        on the device (:meth:`gather_rows`) and run the unchanged
+        ``apply_layer`` — same ``GA_p``, same bits as the reference path. In
+        ``"kernel-fused"`` a family's ``spec.fused_forward`` (GCN: the
+        one-kernel gather+aggregate) or ``spec.fused_apply`` (GAT: the
+        kernel softmax) takes its place."""
         key = (spec.name, activate)
         if key not in self._fwd:
             if self.fused_aggregate and spec.fused_forward is not None:
                 fused = spec.fused_forward
 
-                def f(layer, stack, idx, topo):
+                def f(layer, stack, idx, topo, side=None):
                     return fused(self, layer, stack, idx, topo, activate)
             else:
                 apply = self._apply_fn(spec)
 
-                def f(layer, stack, idx, topo):
-                    return apply(layer, self.gather_rows(stack, idx), topo,
-                                 activate=activate)
+                def f(layer, stack, idx, topo, side=None):
+                    return apply_with(apply, layer,
+                                      self.gather_rows(stack, idx), topo,
+                                      activate, side)
 
             self._fwd[key] = f
         return self._fwd[key]
@@ -221,17 +223,18 @@ class KernelDispatch:
         return attn
 
     def fused_backward_fn(self, spec, activate: bool):
-        """``f(layer, stack, idx, topo, d_out) -> (dp, dga)`` for one
-        backward layer over the staged partition stack: regather ``GA`` on
-        the device (:meth:`gather_rows`, a bitwise copy), then the layer's
-        vjp at ``GA`` (:func:`apply_vjp`) — the reference backward's
-        arithmetic on the same ``GA``, so the same bits (GAT in
-        ``"kernel-fused"`` recomputes its softmax with the kernel)."""
+        """``f(layer, stack, idx, topo, d_out, side=None) -> (dp, dga)``
+        (``(dp, dga, dside)`` with a ``side`` input) for one backward layer
+        over the staged partition stack: regather ``GA`` on the device
+        (:meth:`gather_rows`, a bitwise copy), then the layer's vjp at
+        ``GA`` (:func:`apply_vjp`) — the reference backward's arithmetic on
+        the same ``GA``, so the same bits (GAT in ``"kernel-fused"``
+        recomputes its softmax with the kernel)."""
         apply = self._apply_fn(spec)
 
-        def f(layer, stack, idx, topo, d_out):
+        def f(layer, stack, idx, topo, d_out, side=None):
             return apply_vjp(apply, layer, self.gather_rows(stack, idx),
-                             topo, d_out, activate)
+                             topo, d_out, activate, side)
 
         return f
 

@@ -20,11 +20,19 @@ The six families of the reference (``gcn``, ``sage``, ``gat``, ``gin``,
 ``pna``, ``graphcast``) are ported with the reference's order of
 operations and its guards. Parameter names follow the reference's keys
 (``self`` becomes ``lin_self``); ``repro_torch.params`` maps them.
+
+``gcnii`` (Chen et al., ICML 2020) has no counterpart in the reference. Its
+convolutions also read a *side input*: the rows of an earlier layer's
+activation for the unit's own vertices (``H^0``, layer 1's activation).
+:attr:`GNNSpec.side_input` says which layer a module reads so; the engines
+stage those rows beside ``ga`` and :func:`apply_vjp` returns their
+cotangent as well.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from functools import partial
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
@@ -261,18 +269,35 @@ def _out(h: torch.Tensor, activate: bool) -> torch.Tensor:
     return _relu(h) if activate else h
 
 
+def apply_with(apply: Callable, layer: nn.Module, ga: torch.Tensor,
+               topo: "LocalTopo", activate: bool,
+               side: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``apply(layer, ga, topo, activate)``, handing the layer its side
+    input where it reads one (:attr:`GNNSpec.side_input`)."""
+    if side is None:
+        return apply(layer, ga, topo, activate=activate)
+    return apply(layer, ga, topo, activate=activate, side=side)
+
+
 def apply_vjp(apply: Callable, layer: nn.Module, ga: torch.Tensor,
-              topo: "LocalTopo", d_out: torch.Tensor, activate: bool):
+              topo: "LocalTopo", d_out: torch.Tensor, activate: bool,
+              side: Optional[torch.Tensor] = None):
     """vjp of one layer at ``ga``: ``({param_name: dL/dparam}, dL/dga)``
-    for the cotangent ``d_out`` of ``apply(layer, ga, topo, activate)``.
+    for the cotangent ``d_out`` of ``apply(layer, ga, topo, activate)``;
+    with a ``side`` input, ``(..., dL/dside)`` as a third element.
     Recomputes the layer's intermediates (the regather engine keeps none)
     under ``enable_grad`` — the forward runner computes under ``no_grad``."""
     names, params = zip(*layer.named_parameters())
     ga = ga.detach().requires_grad_(True)
+    inputs = [*params, ga]
+    if side is not None:
+        side = side.detach().requires_grad_(True)
+        inputs.append(side)
     with torch.enable_grad():
-        out = apply(layer, ga, topo, activate=activate)
-        *dp, dga = torch.autograd.grad(out, [*params, ga], d_out)
-    return dict(zip(names, dp)), dga
+        out = apply_with(apply, layer, ga, topo, activate, side)
+        grads = torch.autograd.grad(out, inputs, d_out)
+    dp = dict(zip(names, grads[:len(names)]))
+    return (dp, *grads[len(names):])
 
 
 # --------------------------------------------------------------------------
@@ -290,17 +315,21 @@ class GCNLayer(nn.Module):
         self.lin = _dense(d_in, d_out, generator, device)
 
 
-def gcn_apply(layer: GCNLayer, ga: torch.Tensor, topo: LocalTopo,
-              activate: bool = True) -> torch.Tensor:
-    """Gather, scale by ``edge_weight``, segment sum over ``dst``, dense,
-    relu — the reference ``gcn_apply``'s order. The scale is applied in
-    place on the freshly gathered messages (same single rounding, one
-    ``(E, d)`` tensor live instead of two)."""
+def gcn_aggregate(ga: torch.Tensor, topo: LocalTopo) -> torch.Tensor:
+    """``P̃ ga`` over the unit's edges: gather, scale by ``edge_weight``,
+    segment sum over ``dst``. The scale is applied in place on the freshly
+    gathered messages (same single rounding, one ``(E, d)`` tensor live
+    instead of two)."""
     msg = edge_gather(ga, topo.src)
     msg.mul_(topo.edge_weight[:, None])
-    agg = seg_sum(msg, topo.dst, topo.n_dst)
-    del msg
-    return _out(layer.lin(agg), activate)
+    return seg_sum(msg, topo.dst, topo.n_dst)
+
+
+def gcn_apply(layer: GCNLayer, ga: torch.Tensor, topo: LocalTopo,
+              activate: bool = True) -> torch.Tensor:
+    """:func:`gcn_aggregate`, dense, relu — the reference ``gcn_apply``'s
+    order."""
+    return _out(layer.lin(gcn_aggregate(ga, topo)), activate)
 
 
 def gcn_fused_forward(kd: Any, layer: GCNLayer, stack: torch.Tensor,
@@ -317,6 +346,87 @@ def gcn_fused_forward(kd: Any, layer: GCNLayer, stack: torch.Tensor,
     agg = kd.gather_aggregate(stack, idx.index_select(0, topo.src[:e]),
                               topo.dst[:e], topo.edge_weight[:e], topo.n_dst)
     return _out(layer.lin(agg), activate)
+
+
+# --------------------------------------------------------------------------
+# GCNII (Chen et al., "Simple and Deep Graph Convolutional Networks", ICML
+# 2020, eq. 5): a dense input layer makes H^0, every convolution mixes its
+# aggregate with H^0 (the initial residual) and its own input into its
+# weight (the identity mapping), a dense output layer makes the logits.
+# --------------------------------------------------------------------------
+
+GCNII_ALPHA = 0.1     # the initial residual's share (the authors' default)
+GCNII_LAMBDA = 0.4    # beta_l = ln(lambda / l + 1) (their Pubmed setting)
+
+
+def gcnii_beta(index: int, lam: float = GCNII_LAMBDA) -> float:
+    """The identity mapping's weight of convolution ``index`` (1-based,
+    the module index): ``ln(lambda / index + 1)``."""
+    return math.log(lam / index + 1.0)
+
+
+class GCNIIDense(nn.Module):
+    """GCNII's input (``d_feat -> d_hidden``) or output layer: ``lin`` on
+    each vertex's own row, no aggregation."""
+
+    def __init__(self, d_in: int, d_out: int, *, generator: torch.Generator,
+                 device: DeviceLike = None):
+        super().__init__()
+        self.lin = _dense(d_in, d_out, generator, device)
+
+
+class GCNIIConv(nn.Module):
+    """One GCNII convolution: weight ``w`` ``(d, d)`` (N(0, 1) / sqrt(d), no
+    bias, as the authors' layers). ``alpha`` and ``beta`` are plain floats
+    of the module index, not buffers: a layer built on the meta device and
+    materialised with ``to_empty`` keeps them."""
+
+    def __init__(self, d: int, *, index: int, generator: torch.Generator,
+                 device: DeviceLike = None, alpha: float = GCNII_ALPHA,
+                 lam: float = GCNII_LAMBDA):
+        super().__init__()
+        self.w = _param(torch.randn((d, d), generator=generator)
+                        / np.sqrt(d), device)
+        self.alpha = alpha
+        self.beta = gcnii_beta(index, lam)
+
+
+def gcnii_layer(d_in: int, d_out: int, *, generator: torch.Generator,
+                device: DeviceLike = None, index: int,
+                n_layers: int) -> nn.Module:
+    """Module ``index`` of ``n_layers``: dense first and last, a
+    convolution (``d_in == d_out``) between."""
+    if index in (0, n_layers - 1):
+        return GCNIIDense(d_in, d_out, generator=generator, device=device)
+    if d_in != d_out:
+        raise ValueError(f"GCNII convolution {index}: width {d_in} -> "
+                         f"{d_out}; its convolutions keep the width")
+    return GCNIIConv(d_in, index=index, generator=generator, device=device)
+
+
+def gcnii_side_input(index: int, n_layers: int) -> Optional[int]:
+    """Every convolution reads ``H^0``, layer 1's activation (the dense
+    input layer's output)."""
+    return 1 if 0 < index < n_layers - 1 else None
+
+
+def gcnii_apply(layer: nn.Module, ga: torch.Tensor, topo: LocalTopo,
+                activate: bool = True,
+                side: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A convolution: ``s = (1 - alpha) P̃ ga + alpha side`` (``side`` =
+    ``H^0``'s rows of the unit's vertices), then ``(1 - beta) s + beta s
+    w`` in one ``addmm``; a dense layer: ``lin`` on each vertex's own row
+    of ``ga``. Then relu where ``activate``."""
+    if isinstance(layer, GCNIIConv):
+        if side is None:
+            raise ValueError("a GCNII convolution reads H^0: pass side=")
+        s = (1.0 - layer.alpha) * gcn_aggregate(ga, topo) \
+            + layer.alpha * side
+        out = torch.addmm(s, s, layer.w, beta=1.0 - layer.beta,
+                          alpha=layer.beta)
+    else:
+        out = layer.lin(edge_gather(ga, topo.dst_self))
+    return _out(out, activate)
 
 
 # --------------------------------------------------------------------------
@@ -530,13 +640,27 @@ class GNNSpec:
     dispatcher's ``kernel-fused`` mode (None: the plain ones):
     ``fused_forward(kd, layer, stack, idx, topo, activate)`` replaces the
     stacked forward's regather + ``apply_layer``; ``fused_apply(kd)``
-    returns the layer function the stacked forward and backward run."""
+    returns the layer function the stacked forward and backward run.
+
+    ``indexed``: ``layer_cls`` also takes the module's ``index`` and
+    ``n_layers`` (its modules differ by index). ``side_input(index,
+    n_layers)``: the activation layer whose rows of the unit's own vertices
+    module ``index`` reads beside ``ga`` (passed as ``side=``), or None."""
 
     name: str
     layer_cls: Callable[..., nn.Module]
     apply_layer: Callable[..., torch.Tensor]
     fused_forward: Optional[Callable[..., torch.Tensor]] = None
     fused_apply: Optional[Callable[[Any], Callable[..., torch.Tensor]]] = None
+    indexed: bool = False
+    side_input: Optional[Callable[[int, int], Optional[int]]] = None
+
+    def side_layer(self, index: int, n_layers: int) -> Optional[int]:
+        """:attr:`side_input` of module ``index`` (None for a family
+        without one)."""
+        if self.side_input is None:
+            return None
+        return self.side_input(index, n_layers)
 
     def init(self, generator: torch.Generator, d_in: int, d_hidden: int,
              d_out: int, n_layers: int,
@@ -545,7 +669,9 @@ class GNNSpec:
         dims = [d_in] + [d_hidden] * (n_layers - 1) + [d_out]
         return nn.ModuleList(
             self.layer_cls(dims[i], dims[i + 1], device=device,
-                           generator=generator)
+                           generator=generator,
+                           **(dict(index=i, n_layers=n_layers)
+                              if self.indexed else {}))
             for i in range(n_layers)
         )
 
@@ -558,6 +684,8 @@ GNN_REGISTRY: Dict[str, GNNSpec] = {
     "gin": GNNSpec("gin", GINLayer, gin_apply),
     "pna": GNNSpec("pna", PNALayer, pna_apply),
     "graphcast": GNNSpec("graphcast", GraphCastLayer, graphcast_apply),
+    "gcnii": GNNSpec("gcnii", gcnii_layer, gcnii_apply, indexed=True,
+                     side_input=gcnii_side_input),
 }
 
 
@@ -606,8 +734,14 @@ def full_graph_forward(spec: GNNSpec, params: List, x, topo: LocalTopo):
     """Dense whole-graph forward; ``x`` is a tensor or a numpy array (moved
     to the topology's device)."""
     h = torch.as_tensor(x, device=topo.device)
+    n = len(params)
+    sides = [spec.side_layer(i, n) for i in range(n)]
+    kept = {}      # the activations a later module reads as its side input
     for i, layer in enumerate(params):
-        h = spec.apply_layer(layer, h, topo, activate=(i < len(params) - 1))
+        if i in sides:
+            kept[i] = h
+        h = apply_with(spec.apply_layer, layer, h, topo, i < n - 1,
+                       kept.get(sides[i]))
     return h
 
 

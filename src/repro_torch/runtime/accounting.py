@@ -19,7 +19,9 @@ tracer is on. The states:
   frees and allocations;
 - ``fetch`` — pipeline stages the compute thread runs itself: the serial
   stream's gather and aux fetch, and a unit's H2D staging when there is no
-  transfer stage.
+  transfer stage;
+- ``residual`` — adding a unit's side-input cotangent (GCNII's ∇H^0) into
+  its partition's grad buffer.
 
 The wait for the next unit of a pipelined stream is not a state: the
 ``compute_wait_*`` stalls of :meth:`PipelineExecutor.run_stream` account
@@ -43,7 +45,8 @@ import torch
 
 from repro_torch.core.counters import Counters
 
-LOOP_STATES = ("launch", "sync", "scatter", "write", "barrier", "fetch")
+LOOP_STATES = ("launch", "sync", "scatter", "write", "barrier", "fetch",
+               "residual")
 DEVICE_PASSES = ("fwd", "loss", "bwd")
 
 

@@ -30,6 +30,11 @@ cache, whose entries are raw storage blocks); compute always happens in
 ``dtype``. With ``store_dtype == dtype`` the gather uses the GIL-releasing
 ``np.take`` fast path and the byte flow is exactly the training engine's.
 
+A module that reads a side input (``GNNSpec.side_input``: GCNII's
+convolutions read ``H^0``) gets the rows of that layer for the unit's own
+vertices staged beside its gather, on the same worker and through the same
+cache: :meth:`ForwardRunner.side_rows`, prefetched with the unit's blocks.
+
 Streams: compute runs on the calling thread's current CUDA stream (the
 kernels take that stream too); the transfer thread copies on its own
 stream. A tensor allocated on the transfer stream and read on the compute
@@ -52,6 +57,7 @@ from repro_torch.core.plan import PartitionPlan, WorkUnit
 from repro_torch.core.storage import StorageTier
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.dispatch import KernelDispatch
+from repro_torch.models.gnn.layers import apply_with
 from repro_torch.runtime.config import PipelineConfig
 
 
@@ -65,10 +71,28 @@ class StackedGather(NamedTuple):
     memcpy'd back to back (``stack``, a pooled buffer with one zeroed pad
     row at the end) plus the unit's layer-independent row map ``idx``
     (``(r_pad,) int32``, cached — NOT pool-owned) such that
-    ``stack[idx] == GA_p`` bitwise."""
+    ``stack[idx] == GA_p`` bitwise; ``side`` the unit's side-input rows
+    (:meth:`ForwardRunner.side_rows`, pooled) or None."""
 
     stack: np.ndarray
     idx: np.ndarray
+    side: Optional[np.ndarray] = None
+
+
+class WithSide(NamedTuple):
+    """The padded gather's product for a module that reads a side input:
+    the ``GA`` buffer and the side rows, both pooled."""
+
+    ga: np.ndarray
+    side: np.ndarray
+
+
+def split_side(obj):
+    """``(ga, side)`` of a padded gather's product (``side`` None where the
+    module reads none)."""
+    if isinstance(obj, WithSide):
+        return obj.ga, obj.side
+    return obj, None
 
 
 def unit_row_map(plan: PartitionPlan, u: WorkUnit):
@@ -118,6 +142,7 @@ class ForwardRunner:
         self.spec = spec
         self.plan = plan
         self.dims = list(dims)
+        self.n_layers = len(self.dims) - 1
         self.storage = storage
         self.cache = cache
         self.counters = counters
@@ -156,8 +181,8 @@ class ForwardRunner:
         if activate not in self._fwd:
             apply = self.spec.apply_layer
 
-            def f(layer, ga, topo):
-                return apply(layer, ga, topo, activate=activate)
+            def f(layer, ga, topo, side=None):
+                return apply_with(apply, layer, ga, topo, activate, side)
 
             self._fwd[activate] = f
         return self._fwd[activate]
@@ -214,9 +239,59 @@ class ForwardRunner:
         )
         return buf
 
-    def gather_padded(self, layer: int, u: WorkUnit, phase: str) -> np.ndarray:
+    def gather_padded(self, layer: int, u: WorkUnit, phase: str):
+        """:meth:`gather` at ``r_pad`` rows, as a :class:`WithSide` with
+        the side rows where module ``layer`` reads a side input."""
         with PhaseTimer(self.counters, phase):
-            return self.gather(layer, u, u.r_pad)
+            ga = self.gather(layer, u, u.r_pad)
+            side = self.side_rows(layer, u)
+            return ga if side is None else WithSide(ga, side)
+
+    # ----------------------------------------------------------- side input
+    def side_layer(self, layer: int) -> Optional[int]:
+        """The layer whose own-vertex rows module ``layer`` reads beside
+        ``GA`` (``GNNSpec.side_input``), or None."""
+        return self.spec.side_layer(layer, self.n_layers)
+
+    def _load_side(self, layer: int, q: int) -> np.ndarray:
+        """A side input's block read from storage for the side alone."""
+        block = self.load_part_block(layer, q)
+        self.counters.bump("residual_read_bytes", block.nbytes)
+        return block
+
+    def side_rows(self, layer: int, u: WorkUnit) -> Optional[np.ndarray]:
+        """The side input of module ``layer`` for unit ``u``: the side
+        layer's rows of the unit's own vertices (one contiguous block, the
+        unit's own partition), through the cache, into a pooled ``(d_pad,
+        d)`` buffer whose rows past ``n_dst`` are zero. None where the
+        module reads no side input. Releases the pin the prefetch stage
+        took for it."""
+        k = self.side_layer(layer)
+        if k is None:
+            return None
+        t0 = time.perf_counter()
+        d = self.dims[k]
+        block = self.cache.get(
+            (self.act_kind, k, u.p), loader=partial(self._load_side, k, u.p),
+            size_hint=self.block_nbytes(k, u.p),
+        )
+        buf = self._rt.pool.acquire((u.d_pad, d), self.dtype)
+        tc = time.perf_counter_ns()
+        buf[: u.n_dst] = block      # upcasts reduced-precision storage
+        buf[u.n_dst :] = 0
+        copy_ns = time.perf_counter_ns() - tc
+        for key in self.prefetch_pins.pop(("side", layer, u.p), ()):
+            self.cache.unpin(key)
+        self.counters.bump_many(
+            residual_rows=u.n_dst,
+            host_gather_bytes=u.n_dst * d * self.dtype.itemsize,
+            host_copy_ns=copy_ns,
+        )
+        tracer = self.counters.tracer
+        if tracer.enabled:
+            tracer.complete("residual", time.perf_counter() - t0,
+                            args={"layer": layer, "p": u.p})
+        return buf
 
     # ------------------------------------------------- stacked gather (kernel)
     def _unit_idx(self, u: WorkUnit):
@@ -281,8 +356,12 @@ class ForwardRunner:
     def stacked_gather_timed(
         self, layer: int, u: WorkUnit, phase: str
     ) -> StackedGather:
+        """:meth:`stacked_gather` with the side rows where module ``layer``
+        reads a side input."""
         with PhaseTimer(self.counters, phase):
-            return self.stacked_gather(layer, u)
+            sg = self.stacked_gather(layer, u)
+            side = self.side_rows(layer, u)
+            return sg if side is None else sg._replace(side=side)
 
     def prefetch_unit(self, layer: int, u: WorkUnit) -> None:
         """Stage-1: make (and keep) the unit's source partitions resident.
@@ -301,16 +380,26 @@ class ForwardRunner:
                 pin = True
                 self.counters.bump("slow_lane_pins")
         keys = [(self.act_kind, layer, int(q)) for q in u.req_parts]
+        # a side input's block, where no gather of the unit reads it
+        side = self.side_layer(layer)
+        side_key = None
+        if side is not None and side != layer:
+            side_key = (self.act_kind, side, u.p)
+            keys.append(side_key)
         if self.pipeline.batched_reads:
-            name = self.act_name(layer)
-            sizes = {k: self.block_nbytes(layer, k[2]) for k in keys}
+            sizes = {k: self.block_nbytes(k[1], k[2]) for k in keys}
 
             def batch_loader(missing):
                 reqs = []
-                for (_, _, q) in missing:
+                for (_, kl, q) in missing:
                     a0, a1 = self.plan.ro.partition_slice(q)
-                    reqs.append((name, a0, a1))
-                return self.storage.read_rows_batched(reqs)
+                    reqs.append((self.act_name(kl), a0, a1))
+                blocks = self.storage.read_rows_batched(reqs)
+                if side_key in missing:
+                    self.counters.bump(
+                        "residual_read_bytes",
+                        blocks[missing.index(side_key)].nbytes)
+                return blocks
 
             res = self.cache.prefetch_many(
                 keys, batch_loader, pin=pin, sizes=sizes
@@ -319,14 +408,19 @@ class ForwardRunner:
         else:
             pinned = []
             for key in keys:
+                load = self._load_side if key == side_key \
+                    else self.load_part_block
                 resident = self.cache.prefetch(
                     key,
-                    loader=partial(self.load_part_block, layer, key[2]),
+                    loader=partial(load, key[1], key[2]),
                     pin=pin,
-                    size_hint=self.block_nbytes(layer, key[2]),
+                    size_hint=self.block_nbytes(key[1], key[2]),
                 )
                 if pin and resident:
                     pinned.append(key)
+        if side_key in pinned:
+            pinned.remove(side_key)
+            self.prefetch_pins[("side", layer, u.p)] = [side_key]
         if pinned:
             self.prefetch_pins[(layer, u.p)] = pinned
 
@@ -355,6 +449,7 @@ class ForwardRunner:
             return
         if isinstance(obj, StackedGather):
             self._rt.pool.release(obj.stack)
+            self.release_gather(obj.side)
             return
         if isinstance(obj, tuple):
             for o in obj:
@@ -404,42 +499,54 @@ class ForwardRunner:
             self._rt.pool.release(arr, event=ev)
         return dev, ev
 
+    def stage_side(self, side: Optional[np.ndarray]):
+        """:meth:`stage_h2d` of a unit's side rows (None: none); a later
+        copy's event on the same stream covers it."""
+        return None if side is None else self.stage_h2d(side)[0]
+
     def _await(self, ev, *tensors) -> None:
         """Compute side of a staged unit: make the current stream wait on
-        the transfer's event, and mark the staged tensors as used on it."""
+        the transfer's event, and mark the staged tensors (None: none) as
+        used on it."""
         if ev is None:
             return
         cur = torch.cuda.current_stream(self.device)
         cur.wait_event(ev)
         for t in tensors:
-            t.record_stream(cur)
+            if t is not None:
+                t.record_stream(cur)
 
     def _make_transfer_fn(self, keep_host: bool):
-        def transfer(u: WorkUnit, ga: np.ndarray, _aux):
+        def transfer(u: WorkUnit, ga, _aux):
             """H2D staging for one forward unit (runs on the transfer
             thread): enqueue the copy on the transfer stream while the
             previous unit's kernels run, and wait for it here (this thread
             only) so the ``h2d`` busy time is the copy's real duration. The
             host buffer goes back to the pool, unless the driver's
-            ``after_compute`` hook still needs it (snapshot mode)."""
+            ``after_compute`` hook still needs it (snapshot mode). The side
+            rows, if any, go first: GA's event covers both copies."""
+            ga, side = split_side(ga)
             with self._xfer_ctx():
+                side_dev = self.stage_side(side)
                 dev, ev = self.stage_h2d(ga, defer=not keep_host)
             if ev is not None:
                 ev.synchronize()
-            return (dev, ga if keep_host else None, ev), None
+            return (dev, ga if keep_host else None, side_dev, ev), None
 
         return transfer
 
     def _make_stacked_transfer_fn(self):
         def transfer(u: WorkUnit, sg: StackedGather, _aux):
             # the row map first (device-resident after the unit's first
-            # layer), then the stack: the stack's event covers both
+            # layer), the side rows, then the stack: the stack's event
+            # covers them all
             with self._xfer_ctx():
                 idx_dev = self.idx_dev(u)
+                side_dev = self.stage_side(sg.side)
                 stack_dev, ev = self.stage_h2d(sg.stack)
             if ev is not None:
                 ev.synchronize()
-            return (stack_dev, idx_dev, ev), None
+            return (stack_dev, idx_dev, side_dev, ev), None
 
         return transfer
 
@@ -534,25 +641,28 @@ class ForwardRunner:
                 if use_stacked:
                     ga_host = None
                     if use_xfer:
-                        stack_dev, idx_dev, ev = ga
-                        self._await(ev, stack_dev, idx_dev)
+                        stack_dev, idx_dev, side_dev, ev = ga
+                        self._await(ev, stack_dev, idx_dev, side_dev)
                     else:
                         idx_dev = self.idx_dev(u)
+                        side_dev = self.stage_side(ga.side)
                         stack_dev, _ = self.stage_h2d(ga.stack)
                         loop.lap("fetch")
                     dclock.start()
-                    out = fwd(params_l, stack_dev, idx_dev, u.topo)
+                    out = fwd(params_l, stack_dev, idx_dev, u.topo, side_dev)
                 elif use_xfer:
-                    ga_dev, ga_host, ev_host = ga
-                    self._await(ev_host, ga_dev)
+                    ga_dev, ga_host, side_dev, ev_host = ga
+                    self._await(ev_host, ga_dev, side_dev)
                     dclock.start()
-                    out = fwd(params_l, ga_dev, u.topo)
+                    out = fwd(params_l, ga_dev, u.topo, side_dev)
                 else:
-                    ga_host = ga
-                    ga_dev, ev_host = self.stage_h2d(ga, defer=not keep_host)
+                    ga_host, side = split_side(ga)
+                    side_dev = self.stage_side(side)
+                    ga_dev, ev_host = self.stage_h2d(ga_host,
+                                                     defer=not keep_host)
                     loop.lap("fetch")
                     dclock.start()
-                    out = fwd(params_l, ga_dev, u.topo)
+                    out = fwd(params_l, ga_dev, u.topo, side_dev)
                 dclock.stop("fwd")
                 out_dst = out[: u.n_dst]
                 loop.lap("launch")
