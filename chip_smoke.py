@@ -23,7 +23,12 @@ and spill report and checks that the bf16 flash kernel's SASS holds
   and deterministic on a rerun, then at that shape in place in a
   page-locked host base as the engine runs it (``scatter_add_host_``, one
   launch, bitwise the plain version; its row's bound is the host link's,
-  each touched row once each way at the measured rate); ``edge_softmax`` within ``(deg + 4 + |s -
+  each touched row once each way at the measured rate); ``segment_sum`` at
+  unit 0 of the benchmark graph's plan (``perfbench/rmat.py``, 524,288
+  edge rows of 1,024 into 8,192 destinations, row 0 holding the padded
+  tail) bitwise its plain version and a rerun, and ``index_put_(accumulate=
+  True)`` on every segment of at most ``SEGMENT_CHUNK`` edges, with
+  ``index_put_`` as its library time; ``edge_softmax`` within ``(deg + 4 + |s -
   m|) * 2^-23`` relative of the float64 numpy oracle at small shapes and,
   at the unit's real edges with H = 4 heads (GAT's hidden layers), within
   ``(deg_row + 4) * 2^-23`` relative of the plain version per element, and
@@ -76,9 +81,11 @@ and spill report and checks that the bf16 flash kernel's SASS holds
   reference, kernel and kernel-fused at pipeline depth 0 and 2. Checks
   kernel == reference and pipelined == serial bitwise, kernel-fused within
   1e-4 of reference, finite tables, server lookups equal to the table on
-  storage, and each mode's own launch counts: none in reference, one
-  ``gather_rows`` per unit and layer in kernel, one ``gather_aggregate`` per
-  unit and layer in kernel-fused.
+  storage, and each mode's own launch counts: none of the TPU table's in
+  reference, one ``gather_rows`` per unit and layer in kernel, one
+  ``gather_aggregate`` per unit and layer in kernel-fused; one
+  ``segment_sum`` (the aggregate) per unit with edges and layer in
+  reference and kernel, none in kernel-fused.
 - Phase D, training at full width (the main path): the same widths on a
   262,144-node graph (16 partitions, 512 MB host cache, so the 1.07 GB
   layer-0 table is really offloaded), random labels over 19 classes; the
@@ -94,7 +101,11 @@ and spill report and checks that the bf16 flash kernel's SASS holds
   the forward, ``gather_rows`` in the backward and the same ``scatter_add``
   count in kernel-fused; in both kernel modes every one of those pairs
   added in place in a page-locked grad buffer and none through a round
-  trip (``Counters.scatter_inplace_pairs`` / ``scatter_copy_pairs``).
+  trip (``Counters.scatter_inplace_pairs`` / ``scatter_copy_pairs``);
+  ``segment_sum`` three times per (run, layer, unit with edges) in
+  reference and kernel (the forward's aggregate, the backward's recompute
+  of it, the edge gather's transpose), twice in kernel-fused (its forward
+  is ``gather_aggregate``).
 - Phase F, GAT training at full width: the same graph, widths and cache
   (hidden layers 4 heads of 64, the output layer one head of 19), one epoch
   + AdamW in modes reference and kernel-fused at depth 0 and 2. Checks
@@ -102,15 +113,20 @@ and spill report and checks that the bf16 flash kernel's SASS holds
   within 1e-4 (loss) and 5e-4 (gradients) of reference, and exact launch
   counts: ``edge_softmax`` once per (run, forward or backward pass, layer,
   unit with edges), ``gather_rows`` once per (run, pass, layer, unit) and
-  phase D's ``scatter_add`` count in kernel-fused; none in reference.
+  phase D's ``scatter_add`` count in kernel-fused; none of the TPU
+  table's in reference; ``segment_sum`` ten times per (run, layer, unit
+  with edges) in reference, seven in kernel-fused (``edge_softmax`` takes
+  the softmax's sums in the forward and the recompute; its vjp sums once).
 - Phase G, the other families' training at full width: ``sage``,
   ``gin``, ``pna`` and ``graphcast`` at the same widths on a 65,536-node
   graph with a 128 MB host cache (cut from D's 262,144 nodes and 512 MB,
   the same share of the layer-0 table, to keep the script inside its time
   limit), one epoch + AdamW in kernel mode at depth 0 and 2. Checks finite
   loss and gradients, pipelined == serial bitwise, and exact launch
-  counts: ``gather_rows`` once per (run, pass, layer, unit) and the
-  ``scatter_add`` count of this graph's grad write-backs.
+  counts: ``gather_rows`` once per (run, pass, layer, unit), the
+  ``scatter_add`` count of this graph's grad write-backs, and
+  ``segment_sum`` per (run, layer, unit with edges) 4 times in ``sage``
+  and ``gin``, 6 in ``pna`` and 5 in ``graphcast``.
 - Phase J, right after G, the micro-batch baseline, the cost model and the
   run records: (1) ``microbatch_grads`` for GCN at D's widths on D's
   graph (``gcn_norm_coeffs`` weights, 8 micro-batches, as
@@ -261,8 +277,8 @@ and spill report and checks that the bf16 flash kernel's SASS holds
   within 1e-5 of the plain decode; (5) the CAGNET, MFG and batched steps
   on the card (nccl) and on the CPU (gloo) from the same inputs: losses
   within 1e-4 relative and AdamW's ``m`` within 1e-4 max-relative a leaf;
-  and no kernel launched by the distributed steps (they run the layers'
-  plain segment ops, as the reference's do).
+  and no kernel of the TPU table launched by the distributed steps (they
+  run the layers' segment ops, whose sums on the card are ``segment_sum``).
 - Phase N, the dry run (``launch/dryrun.py``) held against steps the card
   runs, at most 60 s: (1) ``graphsage-reddit`` x ``ogb_products`` traced
   for the card on a placeholder ``(1, 1)`` mesh: its predicted argument
@@ -304,6 +320,7 @@ SOURCE = {
     "gather_rows": GS_SOURCE,
     "gather_aggregate": GS_SOURCE,
     "scatter_add": GS_SOURCE,
+    "segment_sum": GS_SOURCE,
     "edge_softmax": "src/repro_torch/kernels/edge_softmax/csrc/edge_softmax.cu",
     "embedding_bag":
         "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
@@ -320,9 +337,13 @@ REPLACES = {
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py:72",
     "bsr_spmm": "src/repro/kernels/bsr_spmm/bsr_spmm.py:45",
+    # the JAX package leaves its segment sums to XLA; every seg_sum on the
+    # card runs this one
+    "segment_sum": None,
 }
 KERNEL_PACKAGES = ("gather_scatter", "edge_softmax", "embedding_bag",
                    "flash_attention", "bsr_spmm")
+TABLE = tuple(k for k, v in REPLACES.items() if v)   # the TPU table's kernels
 NO_LAUNCHES = {k: 0 for k in REPLACES}
 NEW_FAMILIES = ("sage", "gat", "gin", "pna", "graphcast")
 GAT_HEADS = 4                  # GAT's hidden layers (gat_init's default)
@@ -775,6 +796,7 @@ def phase_a(plan, d_in: int, dev):
           f"{time_ms(lambda: torch.sparse.mm(A, narrow)):.4f} ms", flush=True)
     del narrow, A
     results["scatter_add"] = phase_a_scatter(plan, DIMS[1], dev)
+    results["segment_sum"] = phase_a_segment_sum(dev)
     results["edge_softmax"] = phase_a_softmax(u, dev)
     results["embedding_bag"] = phase_a_bag(dev)
     results["flash_attention"] = phase_a_flash(dev)
@@ -782,6 +804,71 @@ def phase_a(plan, d_in: int, dev):
         print_row(name, r)
     torch.cuda.empty_cache()
     return results
+
+
+def bench_plan(device):
+    """The benchmark graph's plan (``perfbench/rmat.py`` at structure seed
+    0, 65,536 nodes, 16 switching-aware partitions, ``build_plan`` with GCN
+    weights and its power-of-two padding), topologies on ``device``. Its
+    unit 0's layer-0 aggregate, ``segment_sum``'s main-path shape, sums
+    524,288 edge rows into 8,192 destinations, row 0 with the padded
+    tail."""
+    from perfbench.rmat import rmat_graph
+    from repro_torch.core.plan import build_plan
+    from repro_torch.graph.csr import CSRGraph, gcn_norm_coeffs
+    from repro_torch.graph.partition import switching_aware_partition
+
+    indptr, indices = rmat_graph(C_NODES, AVG_DEGREE, 0, 0.57, 0.19, 0.19)
+    g = CSRGraph(indptr=indptr, indices=indices, n_nodes=C_NODES)
+    parts = switching_aware_partition(g, N_PARTS, seed=0).parts
+    return build_plan(g, parts, N_PARTS, edge_weight=gcn_norm_coeffs(g),
+                      device=device)
+
+
+def phase_a_segment_sum(dev, d: int = DIMS[0]) -> dict:
+    """``segment_sum`` at the main path's largest shape: unit 0's layer-0
+    aggregate in ``bench_plan`` (524,288 x 1,024 rows of ``torch.Generator``
+    seed 0 over its ``dst`` ids): bitwise its plain version on the card
+    (``ref.segment_sum_ref``) and itself on a rerun, and on every segment
+    of at most ``SEGMENT_CHUNK`` edges bitwise ``index_put_(accumulate=
+    True)``; kernel, plain and ``index_put_`` (the library) times by
+    ``time_ms``; the bound: each edge row read once, the ids and positions
+    (12 bytes an edge) and each output row written once, at HBM's rate."""
+    import torch
+
+    from repro_torch.kernels.gather_scatter import ops, ref
+
+    t = bench_plan(dev).units[0].topo
+    dst, n = t.dst, t.n_dst
+    E, K = dst.shape[0], ops.SEGMENT_CHUNK
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((E, d), generator=gen, device=dev)
+    deg = torch.bincount(dst.long(), minlength=n)
+    k = ops.segment_sum(x, dst, n)
+    p = ref.segment_sum_ref(x, dst, n, K)
+    lib = x.new_zeros((n, d)).index_put_((dst.long(),), x, accumulate=True)
+    short = deg <= K
+    check(torch.equal(k, p),
+          f"segment_sum bitwise vs plain at {E} x {d} into {n} rows (row 0 "
+          f"{int(deg[0])} edges, {int((~short).sum())} rows of more than "
+          f"{K})")
+    check(torch.equal(ops.segment_sum(x, dst, n), k),
+          "segment_sum deterministic (rerun bitwise)")
+    check(torch.equal(k[short], lib[short]),
+          f"segment_sum bitwise index_put_(accumulate=True) on the "
+          f"{int(short.sum())} rows of at most {K} edges")
+    b_ms, b_by = bound(E * d * 4 + 12 * E + n * d * 4, 0.0)
+    r = dict(
+        max_abs_err=float((k - p).abs().max()),
+        ms=time_ms(lambda: ops.segment_sum(x, dst, n)),
+        plain_ms=time_ms(lambda: ref.segment_sum_ref(x, dst, n, K)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: x.new_zeros((n, d)).index_put_(
+            (dst.long(),), x, accumulate=True)),
+    )
+    del x, k, p, lib
+    torch.cuda.empty_cache()
+    return r
 
 
 def print_row(name: str, r: dict) -> None:
@@ -1554,12 +1641,14 @@ def phase_c(dev):
           f"nodes, {C_CACHE_MB} MB host cache", flush=True)
     # the launcher's own graph and plan (kept in its one-entry cache)
     _, plan = _smoke_graph(C_NODES, AVG_DEGREE, N_PARTS, dev)
-    # one launch per unit and layer in each of the two runs (depth 0, 2)
+    # one launch per unit and layer in each of the two runs (depth 0, 2):
+    # the stack's regather and the aggregate, or the fused kernel
     per_path = 2 * (len(DIMS) - 1) * sum(
         1 for p in plan.schedule if plan.unit(p).n_edges > 0)
     expect = {
-        "reference": dict(NO_LAUNCHES),
-        "kernel": dict(NO_LAUNCHES, gather_rows=per_path),
+        "reference": dict(NO_LAUNCHES, segment_sum=per_path),
+        "kernel": dict(NO_LAUNCHES, gather_rows=per_path,
+                       segment_sum=per_path),
         "kernel-fused": dict(NO_LAUNCHES, gather_aggregate=per_path),
     }
     tables = {}
@@ -1641,13 +1730,17 @@ def phase_d(plan, dev):
     # two runs (depth 0 and 2); the scatter kernel runs per (layer 1..L-1,
     # unit, source partition whose rows are not one contiguous run)
     scatters = 2 * (L - 1) * len(scatter_row_sets(plan))
+    # the segment sums of a run's layer and unit with edges: the forward's
+    # aggregate, the backward's recompute of it, the edge gather's
+    # transpose; kernel-fused's forward is gather_aggregate
+    sums = 2 * L * fused_units
     expect = {
-        "reference": dict(NO_LAUNCHES),
+        "reference": dict(NO_LAUNCHES, segment_sum=3 * sums),
         "kernel": dict(NO_LAUNCHES, gather_rows=2 * 2 * L * units,
-                       scatter_add=scatters),
+                       scatter_add=scatters, segment_sum=3 * sums),
         "kernel-fused": dict(NO_LAUNCHES, gather_rows=2 * L * units,
                              gather_aggregate=2 * L * fused_units,
-                             scatter_add=scatters),
+                             scatter_add=scatters, segment_sum=2 * sums),
     }
     runs = {}
     launches = {}
@@ -1710,12 +1803,19 @@ def phase_f(plan, dev):
     edge_units = sum(1 for p in plan.schedule if plan.unit(p).n_edges > 0)
     scatters = 2 * (L - 1) * len(scatter_row_sets(plan))
     # two runs (depth 0, 2) x two passes (the forward, the backward's
-    # recompute) per layer and unit; the softmax only where a unit has edges
+    # recompute) per layer and unit; the softmax only where a unit has edges.
+    # Segment sums per run, layer and unit with edges: ten in reference
+    # (the softmax's denominator and the aggregate in the forward and the
+    # recompute, and the transposes of the layer's six edge gathers); seven
+    # in kernel-fused, where edge_softmax takes the denominator and the two
+    # gathers of its max and sum, and the softmax's vjp sums once
+    sums = 2 * L * edge_units
     expect = {
-        "reference": dict(NO_LAUNCHES),
+        "reference": dict(NO_LAUNCHES, segment_sum=10 * sums),
         "kernel-fused": dict(NO_LAUNCHES, gather_rows=2 * 2 * L * units,
                              scatter_add=scatters,
-                             edge_softmax=2 * 2 * L * edge_units),
+                             edge_softmax=2 * 2 * L * edge_units,
+                             segment_sum=7 * sums),
     }
     runs = {}
     launches = {}
@@ -1765,12 +1865,17 @@ def phase_g(dev):
     _, plan = _smoke_graph(G_NODES, AVG_DEGREE, N_PARTS, dev)
     L = len(DIMS) - 1
     units = len(plan.schedule)
+    edge_units = sum(1 for p in plan.schedule if plan.unit(p).n_edges > 0)
     # two runs (depth 0, 2) x two passes (forward, backward regather) per
     # layer and unit, and phase D's grad write-backs
     expect = dict(NO_LAUNCHES, gather_rows=2 * 2 * L * units,
                   scatter_add=2 * (L - 1) * len(scatter_row_sets(plan)))
+    # segment sums per run, layer and unit with edges: each family's
+    # aggregates in the forward and the recompute, and the transposes of
+    # its edge gathers
+    sums = {"sage": 4, "gin": 4, "pna": 6, "graphcast": 5}
     launches = {}
-    for model in ("sage", "gin", "pna", "graphcast"):
+    for model in sums:
         t0 = time.perf_counter()
         reset_launches()          # this path's launches start here
         r = _train_smoke(
@@ -1788,8 +1893,9 @@ def phase_g(dev):
         check(r["pipeline_matches_serial"],
               f"{model}: pipelined == serial (loss and every gradient, "
               f"bitwise)")
-        check(launches[model] == expect,
-              f"{model}: launches {launches[model]} == {expect}")
+        want = dict(expect, segment_sum=sums[model] * 2 * L * edge_units)
+        check(launches[model] == want,
+              f"{model}: launches {launches[model]} == {want}")
         del r
         torch.cuda.empty_cache()
     return launches
@@ -3884,9 +3990,12 @@ def phase_k(smi: str, dev) -> dict:
             t0 = time.perf_counter()
             reset_launches()
             part()
-            check(not any(launch_counts().values()),
-                  f"no kernel launched by the distributed steps "
-                  f"({time.perf_counter() - t0:.1f} s)")
+            n = launch_counts()
+            launches["segment_sum"] += n["segment_sum"]
+            check(not any(n[k] for k in TABLE),
+                  f"no kernel of the TPU table launched by the distributed "
+                  f"steps ({n['segment_sum']} segment_sum launches, "
+                  f"{time.perf_counter() - t0:.1f} s)")
     finally:
         dist.destroy_process_group()
         expandable_segments(False)
@@ -4137,8 +4246,8 @@ def main() -> int:
         # training, other families' training, phase J's runs, two-tower
         # serving and training, LM serving, phase L's prefills at the other
         # dense ids' widths, phase M's MoE serving, phase K's registry
-        # smokes and bsr_spmm aggregate paths, every count read right
-        # after its runs
+        # smokes and distributed steps and bsr_spmm aggregate paths, every
+        # count read right after its runs
         n = sum(serving[m][name] + training[m][name] for m in MODES)
         n += sum(counts[name] for counts in gat.values())
         n += sum(counts[name] for counts in families.values())

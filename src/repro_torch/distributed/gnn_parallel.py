@@ -23,7 +23,8 @@ placements) and returns ``(params, opt_state, loss)`` after the port's
 ``adamw_update``, with the same loss on every rank. Steps run on ``nccl``
 on the card and on ``gloo`` on the CPU; ``group`` is the data group
 (default: the whole world). Message passing is the layers' own
-``edge_gather`` / ``seg_sum``: no step launches a kernel of
+``edge_gather`` / ``seg_sum``, whose sums on the card are the
+``segment_sum`` kernel; no step launches another kernel of
 ``repro_torch.kernels``.
 
 A zero edge weight marks a padding edge: the steps take ``edge_mask =

@@ -8,8 +8,12 @@ they go through a :class:`KernelDispatch` built from
 
 - ``"auto"`` (default): ``"kernel"`` on a CUDA device, ``"reference"`` on
   the CPU (the reference package's rule: kernels on the accelerator).
-- ``"reference"``: host gather of ``GA_p`` + the model's plain PyTorch
-  ``apply_layer`` on the device.
+- ``"reference"``: host gather of ``GA_p`` + the model's ``apply_layer``
+  on the device, in plain PyTorch but for its segment sums: on the card
+  the layers' ``seg_sum`` is the ``segment_sum`` kernel in every mode (on
+  the CPU, ``index_add_``), so a kernel == reference check on the card
+  does not see that kernel. ``tests/test_torch_segment_sum.py`` holds an
+  engine step on the card against one whose sums take the CPU's route.
 - ``"kernel"``: stage whole partition blocks (the stack), regather ``GA_p``
   on the device with the ``gather_rows`` kernel (a bitwise copy), then run
   the same ``apply_layer`` — bitwise equal to ``"reference"`` because the

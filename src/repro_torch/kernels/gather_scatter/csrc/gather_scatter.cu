@@ -1,8 +1,9 @@
-// Row gather and fused gather+aggregate for the SSO forward hot path, and the
-// sorted scatter-add of the backward's grad write-back, hand written for
-// Hopper (sm_90a). Plain C entry points, loaded with ctypes by
-// repro_torch/kernels/gather_scatter/ops.py; each launches on the caller's
-// stream, allocates nothing and returns cudaGetLastError().
+// Row gather and fused gather+aggregate for the SSO forward hot path, the
+// sorted scatter-add of the backward's grad write-back, and the segment sum
+// of every message-passing layer, hand written for Hopper (sm_90a). Plain C
+// entry points, loaded with ctypes by repro_torch/kernels/gather_scatter/
+// ops.py; each launches on the caller's stream, allocates nothing and
+// returns cudaGetLastError().
 //
 // gather_rows_f32 replaces gather_rows_pallas
 // (src/repro/kernels/gather_scatter/gather_scatter.py:50):
@@ -99,6 +100,47 @@
 //   once. Neighbouring lanes touch neighbouring 16 bytes, so each warp
 //   load is one 512-byte run of a row. Eight warps a block, a block per
 //   eight value rows: a write-back pair's rows are all in flight at once.
+
+// segment_sum_f32 replaces no TPU kernel: the JAX package leaves its
+// segment sums (jax.ops.segment_sum) to XLA. It is the card's seg_sum
+// (repro_torch/models/gnn/layers.py): every message-passing sum over dst
+// and every row gather's backward, a sum over its source ids.
+//   out[r, :] = sum over edges i with seg[i] == r of x[i, :], from +0, in
+//   a fixed order: the wrapper stable-sorts the ids (keys) with their
+//   positions (perm), so a segment's edges lie in edge order; a segment of
+//   at most K edges sums them in that order, one __fadd_rn each (bitwise
+//   a sequential np.add.at, and the CPU's index_add_); a longer one is cut
+//   into chunks of K consecutive edges from its start, each chunk summed
+//   in edge order from +0, and the chunk sums are added in chunk order.
+//   The same bits on every run and under any launch setting: no atomics,
+//   and each output element is one fixed chain of adds.
+//   Bound: memory. It reads each edge's row (E*D*4 bytes), the sorted ids
+//   and positions (12*E), and writes n*D*4, plus each long segment's chunk
+//   sums once each way (at most 2*ceil(E/K) rows).
+//   Design: PyTorch's own index_put_(accumulate=True) gives each distinct
+//   id one warp that walks its duplicates with a read-modify-write of the
+//   output row each, so the longest segment (a plan's padded tail: tens of
+//   thousands of edges into row 0) sets the time of a launch. Here the
+//   launch first finds each segment's edge range in the sorted ids
+//   (row_starts_kernel of ../../csrc/heavy_rows.cuh; no host
+//   synchronisation), then:
+//   - segment_sum_slots_kernel, a thread a segment: each chunk of a
+//     segment of more than K edges writes its first sorted position into
+//     its slot, 2 * (p / K) for a chunk of K edges and 2 * (p / K) + 1 for
+//     a shorter (last) one: two full chunks never start in one K-tile of
+//     positions, nor two short ones, so slots are distinct and there are
+//     2 * ceil(E / K) of them (an unused slot keeps the wrapper's -1);
+//   - segment_sum_chunks_kernel, a thread per (slot, V column): the
+//     chunk's sum in registers, kUnroll rows loaded ahead of the adds,
+//     into the chunk-sum scratch;
+//   - segment_sum_rows_kernel, a thread per (segment, V column), segments
+//     in order: a segment of at most K edges sums its edges as above, a
+//     longer one its chunk sums in chunk order; an empty one writes 0.
+//   V is float4 where D % 4 == 0 with 16-byte aligned bases (a warp then
+//   reads 512 contiguous bytes of a row), else float; a block is 256
+//   threads, threadIdx.x over the columns (a warp multiple, or the power of
+//   two at or above the columns below 32, so narrow sums pack rows into a
+//   warp) and threadIdx.y over segments or slots.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -494,6 +536,102 @@ __global__ void scatter_add_host_kernel(V* __restrict__ base,
   }
 }
 
+// ---- segment_sum: sorted ids `keys` (E) and their positions `perm`
+constexpr int kSegUnroll = 8;  // rows loaded ahead of a chain of adds
+
+// the slot of the chunk of a long segment that starts at sorted position
+// p and holds len (1 .. K) edges
+__device__ __forceinline__ long long chunk_slot(long long p, long long len,
+                                                long long K) {
+  return 2 * (p / K) + (len < K ? 1 : 0);
+}
+
+// x[perm[e], c] over e in [lo, hi), from +0, one __fadd_rn each in order;
+// the positions of the next kSegUnroll rows load behind their values
+template <typename V>
+__device__ __forceinline__ V sum_rows(const V* __restrict__ x,
+                                      const long long* __restrict__ perm,
+                                      long long lo, long long hi,
+                                      long long cols, long long c) {
+  long long pn[kSegUnroll];
+#pragma unroll
+  for (int k = 0; k < kSegUnroll; ++k) pn[k] = lo + k < hi ? perm[lo + k] : 0;
+  V acc = zero_v<V>();
+  long long e = lo;
+  for (; e + kSegUnroll <= hi; e += kSegUnroll) {
+    V v[kSegUnroll];
+#pragma unroll
+    for (int k = 0; k < kSegUnroll; ++k) v[k] = x[pn[k] * cols + c];
+#pragma unroll
+    for (int k = 0; k < kSegUnroll; ++k) {
+      const long long f = e + kSegUnroll + k;
+      pn[k] = f < hi ? perm[f] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < kSegUnroll; ++k) acc = add_rn(acc, v[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < kSegUnroll; ++k)
+    if (e + k < hi) acc = add_rn(acc, x[pn[k] * cols + c]);
+  return acc;
+}
+
+// one thread a segment: the first sorted position of each chunk of a
+// segment of more than K edges, into its slot
+__global__ void segment_sum_slots_kernel(const long long* __restrict__ starts,
+                                         long long n, long long K,
+                                         long long* __restrict__ first) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const long long lo = starts[r], hi = starts[r + 1];
+  if (hi - lo <= K) return;
+  for (long long p = lo; p < hi; p += K)
+    first[chunk_slot(p, min(K, hi - p), K)] = p;
+}
+
+// thread (slot, V column): the slot's chunk summed in edge order
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+segment_sum_chunks_kernel(const V* __restrict__ x, const int* __restrict__ keys,
+                          const long long* __restrict__ perm,
+                          const long long* __restrict__ starts,
+                          const long long* __restrict__ first,
+                          long long n_slots, long long K,
+                          V* __restrict__ chunks, long long cols) {
+  const long long s = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+  const long long c = (long long)blockIdx.y * blockDim.x + threadIdx.x;
+  if (s >= n_slots || c >= cols) return;
+  const long long p = first[s];
+  if (p < 0) return;
+  const long long hi = min(starts[(long long)keys[p] + 1], p + K);
+  chunks[s * cols + c] = sum_rows(x, perm, p, hi, cols, c);
+}
+
+// thread (segment, V column): a segment of at most K edges sums its
+// edges, a longer one its chunks' sums in chunk order
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+segment_sum_rows_kernel(const V* __restrict__ x,
+                        const long long* __restrict__ perm,
+                        const long long* __restrict__ starts,
+                        const V* __restrict__ chunks, long long n,
+                        long long K, V* __restrict__ out, long long cols) {
+  const long long r = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+  const long long c = (long long)blockIdx.y * blockDim.x + threadIdx.x;
+  if (r >= n || c >= cols) return;
+  const long long lo = starts[r], hi = starts[r + 1];
+  V acc;
+  if (hi - lo <= K) {
+    acc = sum_rows(x, perm, lo, hi, cols, c);
+  } else {
+    acc = zero_v<V>();
+#pragma unroll 8
+    for (long long p = lo; p < hi; p += K)
+      acc = add_rn(acc, chunks[chunk_slot(p, min(K, hi - p), K) * cols + c]);
+  }
+  out[r * cols + c] = acc;
+}
+
 // threads along the columns: a warp multiple covering `cols`, at most kThreads
 int col_threads(long long cols) {
   long long t = ((cols + 31) / 32) * 32;
@@ -502,6 +640,15 @@ int col_threads(long long cols) {
 
 bool aligned16(const void* a, const void* b) {
   return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) & 15) == 0;
+}
+
+// segment_sum's threads along the columns: col_threads' warp multiple
+// from 32 columns, below that the power of two at or above them
+int seg_col_threads(long long cols) {
+  if (cols >= 32) return col_threads(cols);
+  int t = 1;
+  while (t < cols) t *= 2;
+  return t;
 }
 
 }  // namespace
@@ -629,4 +776,57 @@ extern "C" int scatter_add_host_f32(float* base_host, const int* rows,
         base, rows, values, R, D);
   }
   return (int)cudaGetLastError();
+}
+
+template <typename V>
+int launch_segment_sum(const V* x, const int* keys, const long long* perm,
+                       long long n, long long cols, long long K,
+                       const long long* starts, const long long* first,
+                       long long n_slots, V* chunks, V* out,
+                       cudaStream_t stream) {
+  const int tx = seg_col_threads(cols);
+  const int ty = kThreads / tx;
+  const unsigned gy = (unsigned)((cols + tx - 1) / tx);
+  const dim3 block(tx, ty);
+  if (n_slots > 0) {
+    segment_sum_chunks_kernel<V>
+        <<<dim3((unsigned)((n_slots + ty - 1) / ty), gy), block, 0, stream>>>(
+            x, keys, perm, starts, first, n_slots, K, chunks, cols);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  segment_sum_rows_kernel<V>
+      <<<dim3((unsigned)((n + ty - 1) / ty), gy), block, 0, stream>>>(
+          x, perm, starts, chunks, n, K, out, cols);
+  return (int)cudaGetLastError();
+}
+
+// keys: the ids sorted stably (E int32), perm: their positions (E int64);
+// scratch from the wrapper: starts (n + 1 int64), first (n_slots =
+// 2 * ceil(E / K) int64), chunks (n_slots * D float). Ids outside [0, n)
+// fall in no segment.
+extern "C" int segment_sum_f32(const float* x, const int* keys,
+                               const long long* perm, long long E, long long n,
+                               long long D, long long K, long long* starts,
+                               long long* first, float* chunks, float* out,
+                               cudaStream_t stream) {
+  if (n <= 0 || D <= 0) return (int)cudaGetLastError();
+  if (K <= 0) return (int)cudaErrorInvalidValue;
+  heavy_rows::row_starts_kernel<<<(unsigned)((n + 1 + 255) / 256), 256, 0,
+                                  stream>>>(keys, E, n, starts);
+  const long long n_slots = E > 0 ? 2 * ((E + K - 1) / K) : 0;
+  if (n_slots > 0) {
+    const cudaError_t err = cudaMemsetAsync(
+        first, 0xff, (size_t)n_slots * sizeof(long long), stream);
+    if (err != cudaSuccess) return (int)err;
+    segment_sum_slots_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        starts, n, K, first);
+  }
+  if (D % 4 == 0 && aligned16(x, out) && aligned16(chunks, out))
+    return launch_segment_sum(reinterpret_cast<const float4*>(x), keys, perm, n,
+                              D / 4, K, starts, first, n_slots,
+                              reinterpret_cast<float4*>(chunks),
+                              reinterpret_cast<float4*>(out), stream);
+  return launch_segment_sum(x, keys, perm, n, D, K, starts, first, n_slots,
+                            chunks, out, stream);
 }

@@ -11,10 +11,14 @@ The reference wrappers padded the feature axis to a 128-lane block (a TPU
 layout constraint); these take any ``D``. The degenerate early returns are
 kept: an empty gather / aggregate returns zeros and an empty scatter leaves
 ``base`` as it is, without a launch.
+
+:func:`segment_sum` replaces no TPU kernel (the JAX package leaves its
+segment sums to XLA): it is the card's route of the layers' ``seg_sum``.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict
 
 import torch
@@ -29,12 +33,20 @@ from repro_torch.kernels.heavy_rows import (
 # kernel is launched (never by the plain versions)
 LAUNCHES: Dict[str, int] = {
     "gather_rows": 0, "gather_aggregate": 0, "scatter_add": 0,
+    "segment_sum": 0,
 }
 
 # gather_aggregate: a row with more edges is a heavy row, split into
 # 32-column slabs spread over the card (chosen on the H100:
 # scripts/pt_heavy_rows.py)
 HEAVY_EDGES = 256
+
+# segment_sum: a segment of more edges is summed in chunks of this many
+# consecutive edges, each chunk on its own threads, and the chunk sums are
+# added in chunk order. A chunk's chain of adds waits on its row loads, so
+# the shortest of 256, 512, 1,024 and 2,048 was the fastest on the H100
+# (scripts/pt_segment_sum.py: a GCN step's sums 27.8 / 34.9 / 47.2 / 78.0 ms)
+SEGMENT_CHUNK = 256
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -63,6 +75,10 @@ def _lib():
         lib.scatter_add_host_f32.restype = ctypes.c_int
         lib.heavy_rows_plan.argtypes = [_P, _I64, _I64, _I64, _P, _P, _I64, _P]
         lib.heavy_rows_plan.restype = ctypes.c_int
+        lib.segment_sum_f32.argtypes = [
+            _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P,
+        ]
+        lib.segment_sum_f32.restype = ctypes.c_int
         _bound = lib
     return _bound
 
@@ -267,8 +283,94 @@ def scatter_add_host_(base: torch.Tensor, rows: torch.Tensor,
     return base
 
 
-# The launch as an operator of its own, so that a fake tensor (the dry run's
-# trace) gets through it without a launch.
+class _SegmentSum(torch.autograd.Function):
+    """:func:`segment_sum` under autograd: the backward gathers the
+    cotangent's rows, ``grad[seg]``, exactly (``index_put_``'s own)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, seg: torch.Tensor, n: int):
+        ctx.save_for_backward(seg)
+        if not x.is_cuda:
+            return ref.segment_sum_ref(x, seg, n, SEGMENT_CHUNK)
+        return torch.ops.repro_torch.segment_sum(x, seg, n)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (seg,) = ctx.saved_tensors
+        return grad.index_select(0, seg), None, None
+
+
+def segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    """``out[seg[i]] += x[i]`` over zeros, ``out`` of shape ``(n,) +
+    x.shape[1:]``, the same bits on every run: ``x`` ``(E, *trailing)``
+    float32 contiguous (read as ``(E, D)``), ``seg`` ``(E,)`` int32 in any
+    order; an id outside ``[0, n)`` falls in no segment. Differentiable in
+    ``x`` (the backward is ``grad.index_select(0, seg)``).
+
+    The order: a segment's edges are taken in edge order. A segment of at
+    most :data:`SEGMENT_CHUNK` edges sums them in that order from +0, one
+    rounding an edge: bitwise a sequential ``np.add.at`` and the CPU's
+    ``index_add_``, and at 32 columns or more the card's
+    ``index_put_(accumulate=True)``. A longer one is cut into chunks of
+    ``SEGMENT_CHUNK`` consecutive edges from its start; each chunk sums in
+    edge order from +0 and the chunk sums add in chunk order.
+
+    On the card the ids are stable-sorted with their positions
+    (``torch.sort``), then one launch (``csrc/gather_scatter.cu``,
+    ``segment_sum_f32``) finds each segment's edges, sums the chunks of the
+    long segments on threads of their own, and each segment's short sum or
+    its chunk sums in order: no atomics and no host synchronisation; its
+    scratch (the segments' starts, the chunk slots and sums, at most
+    ``2 * ceil(E / SEGMENT_CHUNK)`` rows) is allocated here. On a CPU tensor
+    :func:`~repro_torch.kernels.gather_scatter.ref.segment_sum_ref`, the
+    plain version, gives the same bits."""
+    if x.dim() < 1 or seg.dim() != 1 or seg.shape[0] != x.shape[0]:
+        raise ValueError(
+            f"segment_sum wants x (E, ...) and seg (E,); got "
+            f"{tuple(x.shape)} and {tuple(seg.shape)}"
+        )
+    if n < 0:
+        raise ValueError(f"n must be >= 0, got {n}")
+    if x.is_cuda:
+        _check("x", x, torch.float32, x.dim(), x.device)
+        _check("seg", seg, torch.int32, 1, x.device)
+    elif seg.is_cuda:
+        raise ValueError(f"seg is on {seg.device}, expected {x.device}")
+    if x.shape[0] == 0 or n == 0 or math.prod(x.shape[1:]) == 0:
+        return x.new_zeros((n,) + tuple(x.shape[1:]))
+    return _SegmentSum.apply(x, seg, n)
+
+
+# The launches as operators of their own, so that a fake tensor (the dry
+# run's trace) gets through them without a launch.
+
+@torch.library.custom_op("repro_torch::segment_sum", mutates_args=())
+def _segment_sum_launch(x: torch.Tensor, seg: torch.Tensor,
+                        n: int) -> torch.Tensor:
+    dev = x.device
+    E = x.shape[0]
+    D = x.numel() // E
+    keys, perm = torch.sort(seg, stable=True)
+    n_slots = 2 * -(-E // SEGMENT_CHUNK)
+    starts = torch.empty(n + 1, dtype=torch.int64, device=dev)
+    first = torch.empty(n_slots, dtype=torch.int64, device=dev)
+    chunks = torch.empty((n_slots, D), dtype=x.dtype, device=dev)
+    out = torch.empty((n,) + tuple(x.shape[1:]), dtype=x.dtype, device=dev)
+    err = _lib().segment_sum_f32(
+        x.data_ptr(), keys.data_ptr(), perm.data_ptr(), E, n, D,
+        SEGMENT_CHUNK, starts.data_ptr(), first.data_ptr(),
+        chunks.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "segment_sum")
+    LAUNCHES["segment_sum"] += 1
+    return out
+
+
+@_segment_sum_launch.register_fake
+def _(x, seg, n):
+    return x.new_empty((n,) + tuple(x.shape[1:]))
+
 
 @torch.library.custom_op("repro_torch::scatter_add_", mutates_args=("base",))
 def _scatter_add_launch(base: torch.Tensor, rows: torch.Tensor,

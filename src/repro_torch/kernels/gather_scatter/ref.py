@@ -10,6 +10,8 @@ at a float64 double rounding (about one step in 2^29), and
 ``scatter_add_ref`` and the kernel both add in input order, one rounding
 per value row, so they are bitwise equal (and equal to
 :func:`scatter_add_ref_np`, the ``np.add.at`` oracle).
+:func:`segment_sum_ref` sums in the ``segment_sum`` kernel's order, so the
+two are bitwise equal on either device.
 """
 from __future__ import annotations
 
@@ -195,3 +197,41 @@ def scatter_add_ref_np(base: np.ndarray, rows: np.ndarray,
     if rows.size:
         np.add.at(out, np.asarray(rows), np.asarray(values, dtype=out.dtype))
     return out
+
+
+def _add_rows(base: torch.Tensor, rows: torch.Tensor,
+              values: torch.Tensor) -> torch.Tensor:
+    """``base[rows[i]] += values[i]`` one value row at a time in input order
+    (``rows`` sorted ascending): the CPU's sequential ``index_add_``, on the
+    card :func:`scatter_add_ref`'s rounds (no atomics)."""
+    if base.is_cuda:
+        return scatter_add_ref(base, rows, values)
+    return base.index_add_(0, rows, values)
+
+
+def segment_sum_ref(x: torch.Tensor, seg: torch.Tensor, n: int,
+                    chunk: int) -> torch.Tensor:
+    """Plain version of the ``segment_sum`` kernel: ``out[seg[i]] += x[i]``
+    over zeros, ``out`` ``(n,) + x.shape[1:]``, in the kernel's order. The
+    ids are stable-sorted, so each segment's edges lie in edge order (an id
+    outside ``[0, n)`` falls in no segment); each segment is cut into
+    chunks of ``chunk`` consecutive edges from its start; each chunk sums
+    its edges in edge order from +0, and each segment its chunk sums in
+    chunk order from +0. A segment of at most ``chunk`` edges is therefore
+    its edges' sum in edge order: a sequential ``np.add.at``."""
+    keys, perm = torch.sort(seg, stable=True)
+    keep = (keys >= 0) & (keys < n)
+    keys, perm = keys[keep].long(), perm[keep]
+    trailing = tuple(x.shape[1:])
+    out = x.new_zeros((n,) + trailing)
+    if keys.numel() == 0:
+        return out
+    pos = torch.arange(keys.numel(), device=keys.device)
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[1:] = keys[1:] != keys[:-1]
+    seg_start = torch.cummax(torch.where(first, pos, 0), 0).values
+    opens = (pos - seg_start) % chunk == 0      # each chunk's first edge
+    cid = torch.cumsum(opens, 0) - 1
+    sums = _add_rows(x.new_zeros((int(cid[-1]) + 1,) + trailing), cid,
+                     x.index_select(0, perm))
+    return _add_rows(out, keys[opens], sums)

@@ -14,7 +14,12 @@ Message passing is an edge gather (:func:`edge_gather`) followed by
 gives the same bits on every run on either device (see their docstrings);
 every row gather's backward is the same segment sum over its indices.
 Forward and backward are therefore deterministic — the property the
-pipelined == serial and kernel == reference checks rest on.
+pipelined == serial and kernel == reference checks rest on. The order of
+a segment sum: a segment of at most ``SEGMENT_CHUNK`` (256) edges sums
+them in edge order, on the CPU and on the card alike; on the card a longer
+one sums chunks of ``SEGMENT_CHUNK`` consecutive edges, each in edge
+order, and adds the chunk sums in chunk order, where the CPU keeps edge
+order throughout.
 
 The six families of the reference (``gcn``, ``sage``, ``gat``, ``gin``,
 ``pna``, ``graphcast``) are ported with the reference's order of
@@ -93,17 +98,30 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 
 def seg_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
     """``out[seg[i]] += x[i]`` over zeros — the counterpart of the
-    reference's ``jax.ops.segment_sum``.
+    reference's ``jax.ops.segment_sum``. The same bits on every run on
+    either device; no float atomics (``index_add_`` on a CUDA tensor uses
+    them, and its order varies from run to run).
 
-    Deterministic by construction on both devices: ``index_add_`` on a
-    CUDA tensor uses float atomics (order varies from run to run), so the
-    CUDA path uses ``index_put_(accumulate=True)``, which stable-sorts the
-    indices and sums each segment without atomics (in edge order at widths
-    of 32 columns and more; below that its order is its own, and it differs
-    from a sequential ``np.add.at`` by an ulp). On the CPU, ``index_add_``
-    is the sequential loop (while the CPU ``index_put_`` accumulate is the
-    parallel one)."""
+    The order. On the CPU, ``index_add_``: each segment in edge order, one
+    rounding an edge (a sequential ``np.add.at``). On the card, a float32
+    tensor goes to the ``segment_sum`` kernel
+    (:func:`repro_torch.kernels.gather_scatter.ops.segment_sum`): a segment
+    of at most ``SEGMENT_CHUNK`` (256) edges in edge order too, bitwise
+    the CPU's; a longer one in chunks of ``SEGMENT_CHUNK`` consecutive
+    edges, each chunk in edge order from zero, the chunk sums added in
+    chunk order. Its backward gathers the cotangent's rows. A ``DTensor``
+    or another dtype on the card keeps ``index_put_(accumulate=True)``,
+    which stable-sorts the indices and sums each segment without atomics
+    (in edge order at widths of 32 columns and more; below that its order
+    is its own)."""
     x = _rows(x)
+    if x.is_cuda and x.dtype == torch.float32 and not isinstance(x, DTensor):
+        # here, not at the top: the kernels' plain versions import this
+        # module
+        from repro_torch.kernels.gather_scatter.ops import segment_sum
+
+        return segment_sum(x.contiguous(), seg.to(torch.int32).contiguous(),
+                           n)
     out = x.new_zeros((n,) + tuple(x.shape[1:]))
     if x.is_cuda:
         out.index_put_((seg.long(),), x, accumulate=True)

@@ -216,8 +216,10 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing(
     table, erows, dst, w = _agg_inputs(rng, 30, 60, 10, 8)
     ops.gather_rows(*_t(table, erows))
     ops.gather_aggregate(*_t(table, erows, dst, w), 10)
+    ops.segment_sum(torch.from_numpy(table).repeat(2, 1),
+                    torch.from_numpy(dst), 10)
     assert ops.LAUNCHES == {"gather_rows": 0, "gather_aggregate": 0,
-                            "scatter_add": 0}
+                            "scatter_add": 0, "segment_sum": 0}
 
 
 # ----------------------------------------------------------------- dispatch
